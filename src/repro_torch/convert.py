@@ -1,0 +1,53 @@
+"""Carry reference artifacts across to the port as plain numpy/Python data.
+
+``compiled_from_numpy`` rebuilds a :class:`~repro_torch.core.ir.CompiledSchedule`
+from the fields of a reference schedule, so a schedule compiled elsewhere
+runs through the port's executors unchanged (separating compiler faults
+from executor faults).  ``planes_from_numpy``/``planes_to_numpy`` convert
+uint32 bit-planes to and from the port's int32 carrier, bit for bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core import ir
+
+FIELDS = ("key", "ops", "num_cols", "input_cols", "output_cols", "recorded_len",
+          "recorded_gates", "basis", "meta")
+
+
+def compiled_from_numpy(fields: dict) -> ir.CompiledSchedule:
+    """``fields``: ``key``, ``ops`` ([G, 5] ints), ``num_cols``,
+    ``input_cols``/``output_cols`` (name → column list), ``recorded_len``,
+    ``recorded_gates``, ``basis`` and ``meta``, as numpy/plain Python."""
+    missing = [f for f in FIELDS if f not in fields]
+    if missing:
+        raise KeyError(f"missing schedule fields: {missing}")
+    return ir.CompiledSchedule(
+        key=str(fields["key"]),
+        ops=np.array(fields["ops"], dtype=np.int32).reshape(-1, 5),
+        num_cols=int(fields["num_cols"]),
+        input_cols={k: [int(c) for c in v] for k, v in fields["input_cols"].items()},
+        output_cols={k: [int(c) for c in v] for k, v in fields["output_cols"].items()},
+        recorded_len=int(fields["recorded_len"]),
+        recorded_gates=int(fields["recorded_gates"]),
+        basis=str(fields["basis"]),
+        meta=dict(fields["meta"]),
+    )
+
+
+def planes_from_numpy(planes: np.ndarray, device=None) -> torch.Tensor:
+    """uint32 (or int32) planes → int32 tensor with the same bits."""
+    planes = np.ascontiguousarray(planes)
+    if planes.dtype == np.uint32:
+        planes = planes.view(np.int32)
+    if planes.dtype != np.int32:
+        raise TypeError(f"planes must be 32-bit words, got {planes.dtype}")
+    return torch.as_tensor(planes, device=device)
+
+
+def planes_to_numpy(planes: torch.Tensor) -> np.ndarray:
+    """int32 planes tensor → uint32 numpy array with the same bits."""
+    return planes.detach().cpu().contiguous().numpy().view(np.uint32)

@@ -1,0 +1,412 @@
+"""CUDA executors for bit-serial element-parallel PIM gate schedules.
+
+A crossbar column over R rows is a packed bit-plane of ``R/32`` int32
+words; the serial gate schedule becomes a sequence of bitwise ops over
+those words.  Both logic bases run here — memristive NOR rows and the DRAM
+basis' MAJ3/NOT rows — so one executor serves every ``(program, basis,
+passes)`` compile, including fused multi-op programs from the
+``repro_torch.pim`` frontend.  Device-memory traffic is the program's
+boundary planes only (``CostReport.hbm_planes``).
+
+Two kernels, written by hand for Hopper, port the two Pallas kernels of
+``src/repro/kernels/pim_bitserial.py``:
+
+* ``loop`` — ``csrc/bitserial_loop.cu`` (replaces ``_kernel``): one thread
+  per word walks the gate rows over a crossbar state in shared memory.
+  Any schedule, no per-schedule build.
+* ``unrolled`` — generated per schedule by ``bitserial_codegen`` (replaces
+  ``_unrolled_segment_kernel``): straight-line code on fixed column
+  variables, in hazard-free wave chunks, split into segments of at most
+  ``UNROLL_SEGMENT_GATES`` gates with the ``[num_cols, W]`` state threaded
+  through device memory between segment launches.
+
+The ``cuda`` backend picks the kernel by gate count
+(``UNROLL_AUTO_MAX_GATES``), exactly as the reference's ``pallas`` backend
+does; ``cuda-unrolled`` / ``cuda-loop`` force one.  For CUDA tensors the
+backends launch the kernel or raise; for CPU tensors they run the kernel's
+plain PyTorch version (:func:`loop_plain`, :func:`unrolled_plain`).  Each
+kernel's launches are counted in :data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import torch
+
+from repro_torch.core import ir
+from repro_torch.core.machine import (
+    OP_INIT0,
+    OP_INIT1,
+    OP_MAJ3,
+    OP_NOR,
+    OP_NOT,
+    Schedule,
+    operand_slots,
+)
+
+from . import _build, bitserial_codegen
+
+BLOCK_WORDS = 256
+# Schedules at or below this many gates run straight-line; longer ones run
+# the loop kernel (the reference's threshold, so auto mode picks the same
+# kernel for every program).
+UNROLL_AUTO_MAX_GATES = 1024
+# Straight-line gates per generated segment; boundaries snap to wave chunks.
+UNROLL_SEGMENT_GATES = 1024
+# Dynamic shared memory one block may use on Hopper (227 KB).
+SMEM_LIMIT_BYTES = 232_448
+
+LOOP_SOURCE = Path(__file__).with_name("csrc") / "bitserial_loop.cu"
+
+# Kernel launches on CUDA tensors, one per launch, by kernel.
+LAUNCHES = {"bitserial_loop": 0, "bitserial_unrolled": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Loop kernel (the `loop` mode)
+# ---------------------------------------------------------------------------
+
+
+def words_per_block(num_cols: int) -> int:
+    """Packed words per block of the loop kernel: the largest multiple of 32
+    up to ``BLOCK_WORDS`` whose ``[num_cols, words]`` state fits in shared
+    memory."""
+    words = min(BLOCK_WORDS, SMEM_LIMIT_BYTES // (4 * max(num_cols, 1)) // 32 * 32)
+    if words < 32:
+        raise ValueError(
+            f"a {num_cols}-column schedule does not fit the loop kernel's "
+            f"shared memory even at 32 words per block")
+    return words
+
+
+def loop_plain(compiled: ir.CompiledSchedule, planes: torch.Tensor) -> torch.Tensor:
+    """Plain version of the loop kernel: the reference ``interpreter``'s
+    per-gate walk over an int32 ``[num_cols, W]`` state."""
+    return ir.interpret(compiled, planes)
+
+
+@functools.lru_cache(maxsize=None)
+def _loop_lib() -> ctypes.CDLL:
+    lib = _build.load("bitserial_loop", LOOP_SOURCE.read_text())
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bitserial_loop_launch.argtypes = [p, p, p, p, p, i, i, i, i,
+                                          ctypes.c_longlong, i, p]
+    lib.bitserial_loop_launch.restype = ctypes.c_int
+    lib.bitserial_error_string.argtypes = [ctypes.c_int]
+    lib.bitserial_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.bitserial_error_string(err).decode()
+        raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+def _launch_loop(key: str, planes: torch.Tensor) -> torch.Tensor:
+    compiled = _SCHEDULES[key]
+    gates, in_slots, out_slots = _gate_table(key, planes.device)
+    lib = _loop_lib()
+    n_in, W = planes.shape
+    out = torch.empty((out_slots.shape[0], W), dtype=torch.int32,
+                      device=planes.device)
+    if W == 0:
+        return out
+    stream = torch.cuda.current_stream(planes.device).cuda_stream
+    err = lib.bitserial_loop_launch(
+        planes.data_ptr(), out.data_ptr(), gates.data_ptr(),
+        in_slots.data_ptr(), out_slots.data_ptr(), n_in, out.shape[0],
+        gates.shape[0], compiled.num_cols, W,
+        words_per_block(compiled.num_cols), stream)
+    _check(lib, err, f"bitserial_loop launch for {key!r}")
+    LAUNCHES["bitserial_loop"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Wave-scheduled straight-line kernel (the `unrolled` mode)
+# ---------------------------------------------------------------------------
+
+
+def _wave_chunks(rows):
+    """Greedy hazard-free chunking of allocated schedule rows.
+
+    A gate joins the current chunk while it reads no column written earlier
+    in the chunk (and does not re-write one).  All reads of a chunk then see
+    pre-chunk state, so read-then-write code — every result computed before
+    any column is stored — is exactly program-order semantics, and each
+    chunk is a batch of mutually independent ops.
+    """
+    chunks: list[list[tuple[int, int, int, int, int]]] = []
+    cur: list[tuple[int, int, int, int, int]] = []
+    written: set[int] = set()
+    for row in rows:
+        op, a, b, c, o = row
+        reads = {(a, b, c)[s] for s in operand_slots(op)}
+        if cur and (reads & written or o in written):
+            chunks.append(cur)
+            cur, written = [], set()
+        cur.append(row)
+        written.add(o)
+    if cur:
+        chunks.append(cur)
+    return chunks
+
+
+def _segments(compiled: ir.CompiledSchedule):
+    """Wave chunks grouped into straight-line segments of at most
+    ``UNROLL_SEGMENT_GATES`` gates (chunk boundaries are never split)."""
+    rows = [tuple(int(x) for x in row) for row in compiled.ops]
+    segments: list[list[list[tuple[int, int, int, int, int]]]] = [[]]
+    count = 0
+    for chunk in _wave_chunks(rows):
+        if count and count + len(chunk) > UNROLL_SEGMENT_GATES:
+            segments.append([])
+            count = 0
+        segments[-1].append(chunk)
+        count += len(chunk)
+    return segments
+
+
+def _gate(op: int, va, vb, vc, zero):
+    if op == OP_NOR:
+        return ~(va | vb)
+    if op == OP_MAJ3:
+        return (va & vb) | (va & vc) | (vb & vc)
+    if op == OP_NOT:
+        return ~va
+    if op == OP_INIT0:
+        return zero
+    if op == OP_INIT1:
+        return ~zero
+    return va  # OP_COPY
+
+
+def unrolled_plain(compiled: ir.CompiledSchedule, planes: torch.Tensor,
+                   segments=None) -> torch.Tensor:
+    """Plain version of the straight-line kernel: a Python walk over a list
+    of column tensors, segment by segment and chunk by chunk, each chunk
+    computing all results from pre-chunk columns before assigning any."""
+    segments = _segments(compiled) if segments is None else segments
+    zero = torch.zeros(planes.shape[1], dtype=torch.int32, device=planes.device)
+    cols = [zero] * compiled.num_cols
+    for i, slot in enumerate(compiled.input_slots):
+        cols[slot] = planes[i]
+    for chunks in segments:
+        for chunk in chunks:
+            results = [(o, _gate(op, cols[a], cols[b], cols[c], zero))
+                       for op, a, b, c, o in chunk]
+            for o, r in results:
+                cols[o] = r
+    return torch.stack([cols[s] for s in compiled.output_slots])
+
+
+def unrolled_source(key: str) -> str:
+    return bitserial_codegen.generate(_SCHEDULES[key], _segment_cache(key))
+
+
+def _unrolled_lib(key: str) -> ctypes.CDLL:
+    lib = _UNROLLED_LIBS.get(key)
+    if lib is None:
+        lib = _build.load("bitserial_unrolled", unrolled_source(key))
+        p = ctypes.c_void_p
+        lib.bitserial_segment_launch.argtypes = [ctypes.c_int, p, p, p,
+                                                 ctypes.c_longlong, p]
+        lib.bitserial_segment_launch.restype = ctypes.c_int
+        lib.bitserial_error_string.argtypes = [ctypes.c_int]
+        lib.bitserial_error_string.restype = ctypes.c_char_p
+        _UNROLLED_LIBS[key] = lib
+    return lib
+
+
+def _launch_unrolled(key: str, planes: torch.Tensor) -> torch.Tensor:
+    compiled = _SCHEDULES[key]
+    n_seg = len(_segment_cache(key))
+    lib = _unrolled_lib(key)
+    W = planes.shape[1]
+    out = torch.empty((len(compiled.output_slots), W), dtype=torch.int32,
+                      device=planes.device)
+    if W == 0:
+        return out
+    # Segments thread the crossbar state through device memory; segment 0
+    # writes every column a later segment reads, so it needs no zeroing.
+    state = (torch.empty((compiled.num_cols, W), dtype=torch.int32,
+                         device=planes.device) if n_seg > 1 else None)
+    state_ptr = state.data_ptr() if state is not None else None
+    stream = torch.cuda.current_stream(planes.device).cuda_stream
+    for seg in range(n_seg):
+        err = lib.bitserial_segment_launch(seg, planes.data_ptr(), state_ptr,
+                                           out.data_ptr(), W, stream)
+        _check(lib, err, f"bitserial_unrolled segment {seg} launch for {key!r}")
+        LAUNCHES["bitserial_unrolled"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Per-schedule caches and dispatch
+# ---------------------------------------------------------------------------
+
+# Registry of compiled schedules by key.
+_SCHEDULES: dict[str, ir.CompiledSchedule] = {}
+# Loop-kernel gate tables uploaded once per (key, device).
+_GATE_TABLES: dict[str, dict[torch.device, tuple]] = {}
+# Wave-chunked straight-line segments and their built libraries.
+_SEGMENTS: dict[str, list] = {}
+_UNROLLED_LIBS: dict[str, ctypes.CDLL] = {}
+# Bumped when a key is rebound to different schedule content, which drops
+# every per-key artifact above.
+_GENERATIONS: dict[str, int] = {}
+
+
+def _invalidate(key: str) -> None:
+    _GATE_TABLES.pop(key, None)
+    _SEGMENTS.pop(key, None)
+    _UNROLLED_LIBS.pop(key, None)
+    _GENERATIONS[key] = _GENERATIONS.get(key, 0) + 1
+
+
+def _check_columns(key: str, compiled: ir.CompiledSchedule) -> None:
+    """Every column a schedule names must lie below ``num_cols``: neither
+    kernel checks its indices."""
+    cols = [*compiled.ops[:, 1:].reshape(-1).tolist(), *compiled.input_slots,
+            *compiled.output_slots]
+    if any(not 0 <= c < compiled.num_cols for c in cols):
+        raise ValueError(f"schedule {key!r} indexes a column outside "
+                         f"0..{compiled.num_cols - 1}")
+
+
+def _gate_table(key: str, device: torch.device) -> tuple:
+    """``(gates [G, 5], input slots, output slots)`` int32 on ``device``."""
+    per_device = _GATE_TABLES.setdefault(key, {})
+    table = per_device.get(device)
+    if table is None:
+        compiled = _SCHEDULES[key]
+        table = per_device[device] = tuple(
+            torch.tensor(x, dtype=torch.int32, device=device).contiguous()
+            for x in (compiled.ops, compiled.input_slots, compiled.output_slots))
+    return table
+
+
+def _segment_cache(key: str) -> list:
+    segments = _SEGMENTS.get(key)
+    if segments is None:
+        segments = _SEGMENTS[key] = _segments(_SCHEDULES[key])
+    return segments
+
+
+def register_compiled(compiled: ir.CompiledSchedule, key: str | None = None) -> str:
+    key = key or compiled.key
+    if _SCHEDULES.get(key) is not compiled:
+        _check_columns(key, compiled)
+        _invalidate(key)
+    _SCHEDULES[key] = compiled
+    return key
+
+
+def register_schedule(key: str, schedule: Schedule | ir.CompiledSchedule) -> None:
+    """Register a schedule under ``key``.  Accepts a ``CompiledSchedule`` or a
+    legacy (column-allocated) ``machine.Schedule``, which is wrapped as-is."""
+    if isinstance(schedule, ir.CompiledSchedule):
+        register_compiled(schedule, key)
+        return
+    compiled = ir.CompiledSchedule.from_legacy(schedule, key=key)
+    _check_columns(key, compiled)
+    _invalidate(key)
+    _SCHEDULES[key] = compiled
+
+
+def prebuild(keys=()) -> None:
+    """Build the loop kernel and the straight-line kernels of the registered
+    schedules ``keys``, one ``nvcc`` process per source, all at once."""
+    jobs = [("bitserial_loop", LOOP_SOURCE.read_text())]
+    jobs += [("bitserial_unrolled", unrolled_source(k)) for k in keys]
+    _build.build(jobs)
+
+
+def resolve_mode(compiled: ir.CompiledSchedule, mode: str = "auto") -> str:
+    """``auto`` picks by gate count; ``unrolled``/``loop`` force a kernel."""
+    if mode == "auto":
+        return ("unrolled" if compiled.num_gates <= UNROLL_AUTO_MAX_GATES
+                else "loop")
+    if mode not in ("unrolled", "loop"):
+        raise ValueError(f"unknown executor mode {mode!r} "
+                         "(expected 'auto', 'unrolled' or 'loop')")
+    return mode
+
+
+def run_schedule(key: str, planes: torch.Tensor, mode: str = "auto") -> torch.Tensor:
+    """Execute registered schedule ``key`` over stacked input planes.
+
+    planes: ``[n_inputs, W]`` int32 — inputs concatenated in sorted-name
+    order (matching ``CompiledSchedule.input_slots``).  Returns
+    ``[n_outputs, W]``.  W is padded to a BLOCK_WORDS multiple internally.
+    A CUDA tensor runs the selected kernel; a CPU tensor runs its plain
+    version.
+    """
+    compiled = _SCHEDULES[key]
+    if planes.dim() != 2 or planes.shape[0] != len(compiled.input_slots):
+        expected = {name: len(cols)
+                    for name, cols in sorted(compiled.input_cols.items())}
+        raise ValueError(
+            f"schedule {key!r} expects {len(compiled.input_slots)} stacked "
+            f"input planes ({expected}, in sorted-name order), got "
+            f"{tuple(planes.shape)}")
+    if planes.dtype != torch.int32:
+        raise TypeError(f"planes must be int32, got {planes.dtype}")
+    mode = resolve_mode(compiled, mode)
+    W = planes.shape[1]
+    pad = (-W) % BLOCK_WORDS
+    if pad:
+        planes = torch.nn.functional.pad(planes, (0, pad))
+    planes = planes.contiguous()
+    if planes.device.type == "cuda":
+        launch = _launch_unrolled if mode == "unrolled" else _launch_loop
+        out = launch(key, planes)
+    elif planes.device.type == "cpu":
+        out = (unrolled_plain(compiled, planes, _segment_cache(key))
+               if mode == "unrolled" else loop_plain(compiled, planes))
+    else:
+        raise ValueError(f"no executor for device {planes.device}")
+    return out[:, :W]
+
+
+class CudaBackend(ir.Backend):
+    """GPU executor, kernel chosen by gate count; ``opts['mode']`` overrides
+    the selection per call.  CPU planes run the kernels' plain versions."""
+
+    name = "cuda"
+    mode = "auto"
+
+    def run(self, compiled, planes=None, mode: str | None = None, **opts):
+        if planes is None:
+            raise ValueError(f"{self.name} backend needs input planes")
+        key = register_compiled(compiled)
+        out = run_schedule(key, planes, mode=mode or self.mode)
+        return ir.ExecutionResult(out, self.cost(compiled))
+
+
+class CudaUnrolledBackend(CudaBackend):
+    """Forces the straight-line kernel regardless of size."""
+
+    name = "cuda-unrolled"
+    mode = "unrolled"
+
+
+class CudaLoopBackend(CudaBackend):
+    """Forces the loop kernel."""
+
+    name = "cuda-loop"
+    mode = "loop"
+
+
+ir.register_backend(CudaBackend())
+ir.register_backend(CudaUnrolledBackend())
+ir.register_backend(CudaLoopBackend())

@@ -13,3 +13,8 @@ import pytest  # noqa: E402
 @pytest.fixture(scope="session")
 def key():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skipped when none is present")

@@ -1,0 +1,76 @@
+"""Each CUDA kernel against its plain PyTorch version on the card, at small
+and at odd widths, and the main path end to end.  Needs a CUDA device and
+``nvcc``; every test skips without a card (decided in the fixture, so all
+workers collect the same tests).  Where JAX is not installed, skip the
+conftest (it imports jax); these tests need only torch:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.pim as pim
+from repro_torch.kernels import ops, pim_bitserial
+
+pytestmark = pytest.mark.gpu
+
+MAC = lambda a, b, c: a * b + c  # noqa: E731
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _planes(n: int, words: int, seed: int, device) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 2**32, (n, words), dtype=np.uint64).astype(np.uint32)
+    return torch.from_numpy(w.view(np.int32)).to(device)
+
+
+@pytest.mark.parametrize("words", [1, 77, 256, 1000])
+@pytest.mark.parametrize("program,basis,mode", [
+    ("f32", "memristive", "loop"), ("f32", "dram", "loop"),
+    ("int8", "memristive", "unrolled"), ("int8", "dram", "unrolled"),
+    ("f32", "dram", "unrolled"),
+])
+def test_kernel_matches_plain_version(cuda, program, basis, mode, words):
+    compiled = pim.compile(MAC, dtype=getattr(pim, program)).compiled(basis)
+    key = pim_bitserial.register_compiled(compiled)
+    planes = _planes(len(compiled.input_slots), words, seed=words, device=cuda)
+    name = "bitserial_loop" if mode == "loop" else "bitserial_unrolled"
+    before = pim_bitserial.LAUNCHES[name]
+    got = pim_bitserial.run_schedule(key, planes, mode=mode)
+    torch.cuda.synchronize()
+    assert pim_bitserial.LAUNCHES[name] > before
+    if mode == "loop":
+        want = pim_bitserial.loop_plain(compiled, planes)
+    else:
+        want = pim_bitserial.unrolled_plain(compiled, planes)
+    assert got.shape == (len(compiled.output_slots), words)
+    assert torch.equal(got, want)
+
+
+def test_fixed_add_wrapper_on_card(cuda):
+    rng = np.random.default_rng(0)
+    a, b = (rng.integers(-2**31, 2**31, 5000).astype(np.int32) for _ in range(2))
+    before = pim_bitserial.LAUNCHES["bitserial_unrolled"]
+    got = ops.pim_fixed_add(a, b, nbits=32)
+    assert got.device.type == "cuda"
+    assert pim_bitserial.LAUNCHES["bitserial_unrolled"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy(), a + b)
+
+
+def test_f32_mac_main_path_on_card(cuda):
+    rng = np.random.default_rng(1)
+    x, y, z = (rng.standard_normal(10_001).astype(np.float32) for _ in range(3))
+    mac = pim.compile(MAC, dtype=pim.f32)
+    before = pim_bitserial.LAUNCHES["bitserial_loop"]
+    got = mac(*(torch.from_numpy(v).to(cuda) for v in (x, y, z)), basis="dram")
+    assert pim_bitserial.LAUNCHES["bitserial_loop"] == before + 1
+    np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
+                                  ((x * y) + z).view(np.uint32))

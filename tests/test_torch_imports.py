@@ -1,0 +1,44 @@
+"""The port stands alone: importing ``repro_torch`` and every submodule, or
+``chip_smoke.py``, loads neither JAX, ml_dtypes nor the reference package."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+_CHECK = """
+import importlib, pkgutil, sys
+sys.path[:0] = [{src!r}, {root!r}]
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax_and_no_reference():
+    code = _CHECK.format(src=os.path.abspath(os.path.join(ROOT, "src")),
+                         root=os.path.abspath(ROOT))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, env=env)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 15
+
+
+def test_port_sources_name_no_jax_import():
+    src = os.path.join(ROOT, "src", "repro_torch")
+    for dirpath, _, files in os.walk(src):
+        for f in files:
+            if f.endswith(".py"):
+                text = open(os.path.join(dirpath, f)).read()
+                for banned in ("import jax", "from jax", "import ml_dtypes",
+                               "from repro.", "import repro.", "from repro import"):
+                    assert banned not in text, (f, banned)
