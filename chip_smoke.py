@@ -2,16 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds both bit-serial executor kernels from this checkout's sources with
-``nvcc`` (sm_90a), runs ``repro_torch.pim.compile(lambda a, b, c: a*b+c)``
-on CUDA tensors of 2^24 elements — the f32 MAC on the loop kernel on both
-bases, the int8 MAC and a 32-bit fixed add on the straight-line kernel —
-and checks every result bit for bit against numpy.  Then it holds each
-kernel against its plain PyTorch version word for word (including the
-13-segment straight-line f32 MAC), times each with CUDA events beside its
-bound, and prints one JSON line of kernels and, last,
-``{"ok": true, "device": {...}}``.  Any failed check raises; nothing falls
-back to the CPU or to a plain version.  Imports nothing of JAX.
+Builds every kernel from this checkout's sources with ``nvcc`` (sm_90a),
+all at once: both bit-serial executors and the MatPIM matmul.  Runs
+``repro_torch.pim.compile(lambda a, b, c: a*b+c)`` on CUDA tensors of 2^24
+elements — the f32 MAC on the loop kernel on both bases, the int8 MAC and
+a 32-bit fixed add on the straight-line kernel — and checks every result
+bit for bit against numpy.  Then it holds each bit-serial kernel against
+its plain PyTorch version word for word (including the 13-segment
+straight-line f32 MAC) and times each with CUDA events beside its bound.
+The matmul phase drives the paper's Fig 5 benchmark
+(``benchmarks/torch_fig5_matmul.run()``) on the card, then holds the
+matmul kernel against its plain version at every Fig 5 size in float32
+and bfloat16 (each operand 2^26 elements) and times it beside its bound,
+its plain version and ``torch.bmm``.  It prints one JSON line of kernels
+and, last, ``{"ok": true, "device": {...}}``.  Any failed check raises;
+nothing falls back to the CPU or to a plain version.  Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -25,15 +31,22 @@ import time
 import numpy as np
 import torch
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "src"))
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
 
 import repro_torch.pim as pim  # noqa: E402
-from repro_torch.kernels import _build, ops, pim_bitserial  # noqa: E402
+from benchmarks import torch_fig5_matmul  # noqa: E402
+from repro_torch.kernels import _build, ops, pim_bitserial, pim_matmul  # noqa: E402
 
 N = 1 << 24
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 INT32_LANES_PER_SM = 64  # Hopper white paper: 32-bit logic ops per SM per clock
+FP32_LANES_PER_SM = 128  # Hopper white paper: FP32 FMAs per SM per clock
+BF16_TENSOR_FLOPS = 989e12  # H100 SXM data sheet, dense bf16
+MATMUL_ELEMS = 1 << 26  # elements per matmul operand in the kernel checks
+MATMUL_TOL = {torch.float32: (2e-4, 1.6e-3), torch.bfloat16: (2e-2, 0.16)}
+MATMUL_MAIN_CASE = "f32 n=512"
 TIMED_LAUNCHES = 20
 PLAIN_REPS = 2
 
@@ -104,20 +117,88 @@ def stacked_planes(fn, arrays, device) -> torch.Tensor:
                         for p in t.to_planes(t.cast(x, device))])
 
 
+def matmul_phase(dev: torch.device, fp32_flops: float) -> tuple[int, list[dict]]:
+    """Drive the Fig 5 benchmark on the card, then hold the matmul kernel
+    against its plain version at every Fig 5 size in float32 and bfloat16
+    and time it beside its bound and ``torch.bmm``.  Returns the kernel's
+    launches in the benchmark run and one result per case."""
+    pim_matmul.reset_launches()
+    rows = torch_fig5_matmul.run()
+    torch.cuda.synchronize()
+    mm_launches = pim_matmul.LAUNCHES["pim_matmul"]
+    say(f"matmul path: benchmarks/torch_fig5_matmul.run() launches {mm_launches}")
+    require(mm_launches > 0, "the Fig 5 benchmark did not launch the matmul kernel")
+    names = [f"fig5/matmul_n{n}" for n in torch_fig5_matmul.SIZES]
+    require([r["name"] for r in rows] == names, f"Fig 5 rows: {[r['name'] for r in rows]}")
+    for r in rows:
+        say(f"matmul path: {json.dumps(r)}")
+        require(set(r) == set(rows[0]), f"Fig 5 row {r['name']} lacks columns")
+        for col, v in r.items():
+            if col != "us_per_call":
+                require(v != "", f"Fig 5 row {r['name']}: empty {col}")
+        require((r["us_per_call"] != "") == (r["name"] == "fig5/matmul_n128"),
+                f"Fig 5 row {r['name']}: us_per_call {r['us_per_call']!r}")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    a, b = (torch.randn((2, 128, 128), generator=gen, device=dev) for _ in range(2))
+    say(f"matmul path: the Fig 5 timed instance [2,128,128] f32 back to back: "
+        f"{cuda_ms(lambda: ops.pim_matmul_op(a, b), 100):.4f} ms per call over 100 calls")
+    results = []
+    for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for n in torch_fig5_matmul.SIZES:
+            g = MATMUL_ELEMS // (n * n)
+            a = torch.randn((g, n, n), generator=gen, device=dev).to(dtype)
+            b = torch.randn((g, n, n), generator=gen, device=dev).to(dtype)
+            run = lambda: pim_matmul.matmul(a, b)  # noqa: E731
+            plain = lambda: pim_matmul.matmul_plain(a, b)  # noqa: E731
+            out, ref = run(), plain()
+            torch.cuda.synchronize()
+            require(out.shape == (g, n, n) and out.dtype == dtype, f"matmul {dname} n={n} shape")
+            diff = (out.float() - ref.float()).abs()
+            err = float(diff.max().item())
+            rtol, atol = MATMUL_TOL[dtype]
+            require(bool(torch.isfinite(out.float()).all().item()),
+                    f"matmul {dname} n={n} non-finite")
+            require(bool((diff <= atol + rtol * ref.float().abs()).all().item()),
+                    f"matmul kernel differs from its plain version, {dname} n={n}: "
+                    f"max_abs_err {err}")
+            del out, ref, diff
+            ms = cuda_ms(run, 10)
+            plain_ms = cuda_ms(plain, 3)
+            library_ms = cuda_ms(lambda: torch.bmm(a, b), 10)
+            ops_ms = 2 * g * n**3 / (fp32_flops if dtype == torch.float32
+                                      else BF16_TENSOR_FLOPS) * 1e3
+            bytes_ms = 3 * g * n * n * a.element_size() / HBM_BYTES_PER_S * 1e3
+            bms, by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+            label = f"{dname} n={n}"
+            say(f"kernel pim_matmul on {label} (G={g}): equal to plain within rtol "
+                f"{rtol} atol {atol} (max_abs_err {err:.3g}); {ms:.4f} ms/call, bound "
+                f"{bms:.4f} ms ({by}), plain {plain_ms:.4f} ms, torch.bmm {library_ms:.4f} ms")
+            results.append(dict(label=label, err=err, ms=ms, plain_ms=plain_ms,
+                                bound_ms=bms, bound_by=by, library_ms=library_ms))
+            del a, b
+    return mm_launches, results
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False  # nothing here multiplies matrices
+    # Full float32 in every matrix product: the kernel checks compare with
+    # plain and library products, which must not round through TF32.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     props = torch.cuda.get_device_properties(0)
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi("name,power.limit")
     max_sm_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     int32_ops_per_s = props.multi_processor_count * INT32_LANES_PER_SM * max_sm_mhz * 1e6
+    fp32_flops = props.multi_processor_count * FP32_LANES_PER_SM * 2 * max_sm_mhz * 1e6
     say(f"device: {kind} x{torch.cuda.device_count()}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}; {props.multi_processor_count} SMs, max SM clock "
-        f"{max_sm_mhz:.0f} MHz -> INT32 logic peak {int32_ops_per_s / 1e12:.2f} T ops/s")
+        f"{max_sm_mhz:.0f} MHz -> INT32 logic peak {int32_ops_per_s / 1e12:.2f} T ops/s, "
+        f"FP32 FMA peak {fp32_flops / 1e12:.2f} TFLOP/s")
 
     # ---------------------------------------------------------------- build
     f32_mac = pim.compile(lambda a, b, c: a * b + c, dtype=pim.f32)
@@ -132,7 +213,8 @@ def main() -> int:
     require(pim_bitserial.resolve_mode(int8_c) == "unrolled"
             and pim_bitserial.resolve_mode(add_c) == "unrolled", "int8 MAC auto mode")
     t0 = time.perf_counter()
-    pim_bitserial.prebuild([int8_c.key, add_c.key, f32_mem.key])
+    _build.build(pim_bitserial.build_jobs([int8_c.key, add_c.key, f32_mem.key])
+                 + [pim_matmul.build_job()])
     say(f"build: {time.perf_counter() - t0:.1f} s wall for all kernels, in parallel")
     for lib, entry in _build.BUILD_LOG.items():
         kernels = entry["ptxas"]
@@ -226,6 +308,8 @@ def main() -> int:
     say(f"yardstick (the paper's GPU side, not a version of either kernel): "
         f"native f32 x*y then +z on {N} unpacked elements: {native_ms:.4f} ms")
 
+    mm_launches, mm_results = matmul_phase(dev, fp32_flops)
+
     sources = {
         "bitserial_loop": ("src/repro_torch/kernels/csrc/bitserial_loop.cu",
                            "src/repro/kernels/pim_bitserial.py:93"),
@@ -244,6 +328,15 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "case": r["label"],
         })
+    r = next(r for r in mm_results if r["label"] == MATMUL_MAIN_CASE)
+    line.append({
+        "name": "pim_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pim_matmul.cu",
+        "replaces": "src/repro/kernels/pim_matmul.py:31", "launches": mm_launches,
+        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], "case": r["label"],
+    })
     say(smi)
     say(json.dumps({"kernels": line}))
     say(json.dumps({"ok": True, "device": {

@@ -8,6 +8,7 @@ it bit-exactly on packed bit-planes on an NVIDIA GPU:
     mac = pim.compile(lambda a, b, c: a * b + c, dtype=pim.f32)
     z = mac(x, y, c)                  # on the card; device="cpu" to opt out
 
-Layout mirrors ``repro``: ``core`` (planes, machine, netlists, compiler),
-``pim`` (frontend), ``kernels`` (CUDA executors, wrappers, oracles).
+Layout mirrors ``repro``: ``core`` (planes, machine, netlists, compiler,
+simulation, cost model, metrics), ``pim`` (frontend), ``kernels`` (CUDA
+executors and matmul, wrappers, oracles).
 """

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import ir
+from repro_torch.pim.frontend import resolve_device
 
 FIELDS = ("key", "ops", "num_cols", "input_cols", "output_cols", "recorded_len",
           "recorded_gates", "basis", "meta")
@@ -39,7 +40,10 @@ def compiled_from_numpy(fields: dict) -> ir.CompiledSchedule:
 
 
 def planes_from_numpy(planes: np.ndarray, device=None) -> torch.Tensor:
-    """uint32 (or int32) planes → int32 tensor with the same bits."""
+    """uint32 (or int32) planes → int32 tensor with the same bits, on
+    ``device`` (``None`` = the CUDA card; with no card it raises
+    ``RuntimeError`` unless ``device="cpu"``)."""
+    device = resolve_device(device)
     planes = np.ascontiguousarray(planes)
     if planes.dtype == np.uint32:
         planes = planes.view(np.int32)

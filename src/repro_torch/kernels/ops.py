@@ -8,14 +8,19 @@ backend.  Every wrapper takes ``basis="memristive"|"dram"`` to execute the
 NOR or the MAJ3/NOT lowering of the same netlist,
 ``mode="auto"|"unrolled"|"loop"`` to pick the executor kernel, and
 ``device`` (``None`` = the GPU; ``"cpu"`` runs the kernels' plain
-versions).
+versions).  ``pim_matmul_op`` is the MatPIM-schedule blocked matmul.
 """
 
 from __future__ import annotations
 
 import functools
 
+import torch
+
 import repro_torch.pim as pim
+from repro_torch.pim.frontend import resolve_device
+
+from . import pim_matmul
 
 _ARITH_FNS = {
     "add": lambda a, b: a + b,
@@ -87,6 +92,14 @@ def pim_fixed_div(x, y, nbits: int = 32, device=None,
     """Signed division (C truncation semantics); x//0 is the netlist's
     documented all-ones convention."""
     return _fn("div", "fixed", nbits)(x, y, device=device, basis=basis, mode=mode)
+
+
+def pim_matmul_op(a, b, *, bm=128, bk=128, bn=128, device=None):
+    """Batched ``[G,M,K] @ [G,K,N]`` on ``device`` (``None`` = the GPU):
+    ``a`` and ``b`` (tensors or numpy arrays) are moved there first."""
+    device = resolve_device(device)
+    a, b = torch.as_tensor(a, device=device), torch.as_tensor(b, device=device)
+    return pim_matmul.matmul(a, b, bm=bm, bk=bk, bn=bn)
 
 
 def schedule_info(opname: str, nbits: int = 32, basis: str = "memristive"):

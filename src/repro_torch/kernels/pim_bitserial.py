@@ -323,12 +323,13 @@ def register_schedule(key: str, schedule: Schedule | ir.CompiledSchedule) -> Non
     _SCHEDULES[key] = compiled
 
 
-def prebuild(keys=()) -> None:
-    """Build the loop kernel and the straight-line kernels of the registered
-    schedules ``keys``, one ``nvcc`` process per source, all at once."""
+def build_jobs(keys=()) -> list[tuple[str, str]]:
+    """``(name, source)`` build jobs of the loop kernel and of the
+    straight-line kernels of the registered schedules ``keys``, for
+    ``_build.build`` to compile all at once."""
     jobs = [("bitserial_loop", LOOP_SOURCE.read_text())]
     jobs += [("bitserial_unrolled", unrolled_source(k)) for k in keys]
-    _build.build(jobs)
+    return jobs
 
 
 def resolve_mode(compiled: ir.CompiledSchedule, mode: str = "auto") -> str:

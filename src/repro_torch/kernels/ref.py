@@ -1,4 +1,5 @@
-"""Plain PyTorch oracles for the bit-serial executors and their arithmetic."""
+"""Plain PyTorch oracles for every kernel: the bit-serial executors and
+their arithmetic, and the matmul."""
 
 from __future__ import annotations
 
@@ -33,3 +34,8 @@ def float_mul_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def fixed_add_ref(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Wrapping int32 addition."""
     return x.to(torch.int32) + y.to(torch.int32)
+
+
+def matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Oracle for pim_matmul: batched einsum with float32 accumulation."""
+    return torch.einsum("gmk,gkn->gmn", a.float(), b.float()).to(a.dtype)

@@ -43,7 +43,7 @@ def test_carried_schedule_matches_reference_interpreter(name):
     planes = _planes(len(ref_c.input_slots), seed=len(name))
     want = np.asarray(ref_ir.get_backend("interpreter").run(
         ref_c, jnp.asarray(planes)).planes)
-    tp = convert.planes_from_numpy(planes)
+    tp = convert.planes_from_numpy(planes, device="cpu")
     key = pim_bitserial.register_compiled(port_c, f"carried/{name}")
     for mode in ("auto", "loop", "unrolled"):
         got = pim_bitserial.run_schedule(key, tp, mode=mode)
@@ -119,7 +119,7 @@ def test_plain_versions_match_reference_oracle():
     port_c = convert.compiled_from_numpy(schedule_fields(ref_c))
     planes = _planes(len(ref_c.input_slots), seed=3)
     want = np.asarray(ref_ref.bitserial_ref(ref_c.to_schedule(), jnp.asarray(planes)))
-    tp = convert.planes_from_numpy(planes)
+    tp = convert.planes_from_numpy(planes, device="cpu")
     got = ref.bitserial_ref(port_c.to_schedule(), tp)
     np.testing.assert_array_equal(convert.planes_to_numpy(got), want)
     np.testing.assert_array_equal(
@@ -130,11 +130,11 @@ def test_plain_versions_match_reference_oracle():
 
 def test_planes_round_trip_and_fields():
     planes = _planes(3, seed=9)
-    t = convert.planes_from_numpy(planes)
+    t = convert.planes_from_numpy(planes, device="cpu")
     assert t.dtype == torch.int32
     np.testing.assert_array_equal(convert.planes_to_numpy(t), planes)
     with pytest.raises(TypeError):
-        convert.planes_from_numpy(planes.astype(np.int64))
+        convert.planes_from_numpy(planes.astype(np.int64), device="cpu")
     with pytest.raises(KeyError):
         convert.compiled_from_numpy({"ops": np.zeros((0, 5))})
 
@@ -196,3 +196,12 @@ def test_semantic_oracles_match_reference():
         got = port_fn(*targs).numpy()
         want = np.asarray(ref_fn(*(jnp.asarray(v) for v in args)))
         np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_planes_from_numpy_defaults_to_the_card(monkeypatch):
+    """With no device, planes go to the card, as every entry point's do;
+    with no card that raises instead of quietly staying on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.planes_from_numpy(_planes(2, seed=4))
+    assert convert.planes_from_numpy(_planes(2, seed=4), device="cpu").device.type == "cpu"

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import repro_torch.pim as pim
-from repro_torch.kernels import ops, pim_bitserial
+from repro_torch.kernels import ops, pim_bitserial, pim_matmul
 
 pytestmark = pytest.mark.gpu
 
@@ -74,3 +74,42 @@ def test_f32_mac_main_path_on_card(cuda):
     assert pim_bitserial.LAUNCHES["bitserial_loop"] == before + 1
     np.testing.assert_array_equal(got.cpu().numpy().view(np.uint32),
                                   ((x * y) + z).view(np.uint32))
+
+
+MATMUL_SHAPES = [(1, 128, 128, 128), (2, 256, 384, 512), (3, 128, 256, 128),
+                 (1, 33, 17, 65), (1, 512, 512, 512), (4, 32, 32, 32), (2, 17, 100, 9)]
+MATMUL_CASES = ([(s, d) for s in MATMUL_SHAPES for d in (torch.float32, torch.bfloat16)]
+                + [((70000, 16, 16, 16), torch.float32)])
+MATMUL_TOL = {torch.float32: (2e-4, 1.6e-3), torch.bfloat16: (2e-2, 0.16)}
+
+
+@pytest.mark.parametrize("shape,dtype", MATMUL_CASES)
+def test_matmul_kernel_matches_plain_version(cuda, shape, dtype):
+    """The matmul kernel against its plain version: the reference's shape
+    sweep, ragged dims, the largest Fig 5 size and G above the 65 535
+    grid-dimension limit."""
+    G, M, K, N = shape
+    rng = np.random.default_rng(G + M + K + N)
+    a = torch.from_numpy(rng.standard_normal((G, M, K)).astype(np.float32)).to(cuda, dtype)
+    b = torch.from_numpy(rng.standard_normal((G, K, N)).astype(np.float32)).to(cuda, dtype)
+    before = pim_matmul.LAUNCHES["pim_matmul"]
+    got = ops.pim_matmul_op(a, b)
+    torch.cuda.synchronize()
+    assert pim_matmul.LAUNCHES["pim_matmul"] == before + 1
+    assert got.shape == (G, M, N) and got.dtype == dtype and got.device.type == "cuda"
+    want = pim_matmul.matmul_plain(a, b)
+    rtol, atol = MATMUL_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol, atol=atol)
+
+
+def test_fig5_benchmark_on_card(cuda):
+    """The Fig 5 benchmark runs on the card by default and times the matmul
+    kernel (one warm-up and two timed launches)."""
+    from benchmarks import torch_fig5_matmul
+
+    before = pim_matmul.LAUNCHES["pim_matmul"]
+    rows = torch_fig5_matmul.run()
+    assert pim_matmul.LAUNCHES["pim_matmul"] == before + 3
+    assert [r["name"] for r in rows] == [f"fig5/matmul_n{n}"
+                                         for n in torch_fig5_matmul.SIZES]
+    assert float(rows[3]["us_per_call"]) > 0

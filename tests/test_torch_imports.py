@@ -1,6 +1,8 @@
-"""The port stands alone: importing ``repro_torch`` and every submodule, or
-``chip_smoke.py``, loads neither JAX, ml_dtypes nor the reference package."""
+"""The port stands alone: importing ``repro_torch`` and every submodule, the
+port's benchmarks ``benchmarks/torch_*.py`` or ``chip_smoke.py`` loads
+neither JAX, ml_dtypes nor the reference package."""
 
+import glob
 import os
 import subprocess
 import sys
@@ -8,11 +10,13 @@ import sys
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 _CHECK = """
-import importlib, pkgutil, sys
+import glob, importlib, os, pkgutil, sys
 sys.path[:0] = [{src!r}, {root!r}]
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
+names += sorted("benchmarks." + os.path.basename(p)[:-3] for p in glob.glob(
+    os.path.join({root!r}, "benchmarks", "torch_*.py")))
 for name in names:
     importlib.import_module(name)
 import chip_smoke
@@ -30,15 +34,23 @@ def test_port_imports_no_jax_and_no_reference():
                           text=True, timeout=120, env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 15
+    assert n_modules >= 23  # 19 modules of repro_torch, 4 benchmarks
+
+
+def _port_sources():
+    src = os.path.join(ROOT, "src", "repro_torch")
+    for dirpath, _, files in os.walk(src):
+        yield from (os.path.join(dirpath, f) for f in files if f.endswith(".py"))
+    yield from glob.glob(os.path.join(ROOT, "benchmarks", "torch_*.py"))
+    yield os.path.join(ROOT, "chip_smoke.py")
 
 
 def test_port_sources_name_no_jax_import():
-    src = os.path.join(ROOT, "src", "repro_torch")
-    for dirpath, _, files in os.walk(src):
-        for f in files:
-            if f.endswith(".py"):
-                text = open(os.path.join(dirpath, f)).read()
-                for banned in ("import jax", "from jax", "import ml_dtypes",
-                               "from repro.", "import repro.", "from repro import"):
-                    assert banned not in text, (f, banned)
+    paths = list(_port_sources())
+    assert sum("benchmarks" in p for p in paths) >= 4
+    for path in paths:
+        text = open(path).read()
+        for banned in ("import jax", "from jax", "import ml_dtypes",
+                       "from repro.", "import repro.", "from repro import",
+                       "from .common", "from benchmarks.common", "import benchmarks.common"):
+            assert banned not in text, (path, banned)
