@@ -3,27 +3,33 @@
     python3 chip_smoke.py
 
 Builds every kernel from this checkout's sources with ``nvcc`` (sm_90a),
-all at once: both bit-serial executors and the MatPIM matmul.  Runs
-``repro_torch.pim.compile(lambda a, b, c: a*b+c)`` on CUDA tensors of 2^24
-elements — the f32 MAC on the loop kernel on both bases, the int8 MAC and
-a 32-bit fixed add on the straight-line kernel — and checks every result
-bit for bit against numpy.  Then it holds each bit-serial kernel against
-its plain PyTorch version word for word (including the 13-segment
-straight-line f32 MAC) and times each with CUDA events beside its bound.
-The matmul phase drives the paper's Fig 5 benchmark
-(``benchmarks/torch_fig5_matmul.run()``) on the card, then holds the
-matmul kernel against its plain version at every Fig 5 size in float32
-and bfloat16 (each operand 2^26 elements) and times it beside its bound,
-its plain version and ``torch.bmm``.  It prints one JSON line of kernels
-and, last, ``{"ok": true, "device": {...}}``.  Any failed check raises;
-nothing falls back to the CPU or to a plain version.  Imports nothing of
-JAX.
+all at once: both bit-serial executors and the MatPIM matmul (one source,
+one kernel per variant).  Runs ``repro_torch.pim.compile(lambda a, b, c:
+a*b+c)`` on CUDA tensors of 2^24 elements — the f32 MAC on the loop kernel
+on both bases, the int8 MAC and a 32-bit fixed add on the straight-line
+kernel — and checks every result bit for bit against numpy.  Then it holds
+each bit-serial kernel against its plain PyTorch version word for word
+(including the 13-segment straight-line f32 MAC) and times each with CUDA
+events beside its bound.  The matmul phase drives the paper's Fig 5
+benchmark (``benchmarks/torch_fig5_matmul.run()``) and ``ops.pim_matmul_op``
+at every Fig 5 size in float32 and bfloat16 (each operand 2^26 elements)
+and at ragged shapes; it requires the variant ``pim_matmul.plan`` names to
+have launched for each call, holds each result against the plain version,
+then times each case beside its bound, its plain version, ``torch.bmm`` and
+the first, untiled matmul kernel (kept as the ``general`` variant, named
+for the call).  It reads the matmul library's SASS: every bf16 tensor-core
+variant must hold ``HMMA`` or ``HGMMA``, no float32 variant either.  It
+prints one JSON line of kernels, with the registers and stack frame of
+each read from the built library, and, last, ``{"ok": true, "device":
+{...}}``.  Any failed check raises; nothing falls back to the CPU or to a
+plain version.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -46,7 +52,12 @@ FP32_LANES_PER_SM = 128  # Hopper white paper: FP32 FMAs per SM per clock
 BF16_TENSOR_FLOPS = 989e12  # H100 SXM data sheet, dense bf16
 MATMUL_ELEMS = 1 << 26  # elements per matmul operand in the kernel checks
 MATMUL_TOL = {torch.float32: (2e-4, 1.6e-3), torch.bfloat16: (2e-2, 0.16)}
-MATMUL_MAIN_CASE = "f32 n=512"
+MATMUL_RAGGED = [(1, 33, 17, 65), (2, 256, 384, 512)]
+# The first loop kernel (20-byte gate rows read from device memory, one word
+# a thread) is no longer in the tree; PERF.md records its time on an NVIDIA
+# H100 80GB HBM3 at a 700 W limit, shown beside the new kernel's for scale.
+PERF_MD_FIRST_LOOP = "PERF.md's record of the first loop kernel (H100 80GB HBM3, 700 W)"
+PERF_MD_FIRST_LOOP_MS = {"f32 MAC memristive": 40.4022, "f32 MAC dram": 30.3298}
 TIMED_LAUNCHES = 20
 PLAIN_REPS = 2
 
@@ -117,17 +128,53 @@ def stacked_planes(fn, arrays, device) -> torch.Tensor:
                         for p in t.to_planes(t.cast(x, device))])
 
 
-def matmul_phase(dev: torch.device, fp32_flops: float) -> tuple[int, list[dict]]:
-    """Drive the Fig 5 benchmark on the card, then hold the matmul kernel
-    against its plain version at every Fig 5 size in float32 and bfloat16
-    and time it beside its bound and ``torch.bmm``.  Returns the kernel's
-    launches in the benchmark run and one result per case."""
+def matmul_bound(shape, dtype, fp32_flops: float) -> tuple[float, str]:
+    """Least time for a ``[G,M,K] @ [G,K,N]`` call: its FLOPs at the FP32 FMA
+    peak (float32) or the bf16 tensor-core peak, against reading both
+    operands once and writing the product once."""
+    G, M, K, N = shape
+    elt = 4 if dtype == torch.float32 else 2
+    ops_ms = 2 * G * M * K * N / (fp32_flops if dtype == torch.float32
+                                  else BF16_TENSOR_FLOPS) * 1e3
+    bytes_ms = G * (M * K + K * N + M * N) * elt / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def matmul_cases() -> list[tuple[str, tuple[int, int, int, int], torch.dtype, bool]]:
+    """(label, (G, M, K, N), dtype, is a Fig 5 size): every Fig 5 size in
+    both types, each operand 2^26 elements, then the ragged shapes."""
+    cases = []
+    for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for n in torch_fig5_matmul.SIZES:
+            cases.append((f"{dname} n={n}", (MATMUL_ELEMS // (n * n), n, n, n), dtype, True))
+    for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        for shape in MATMUL_RAGGED:
+            cases.append((f"{dname} ({','.join(map(str, shape[1:]))})", shape, dtype, False))
+    return cases
+
+
+def matmul_inputs(shape, dtype, seed: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+    G, M, K, N = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn((G, M, K), generator=gen, device=dev).to(dtype),
+            torch.randn((G, K, N), generator=gen, device=dev).to(dtype))
+
+
+def matmul_phase(dev: torch.device, fp32_flops: float) -> tuple[dict, list[dict]]:
+    """Drive the Fig 5 benchmark and ``ops.pim_matmul_op`` at every case on
+    the card, each call on the variant ``plan`` names and within tolerance
+    of the plain version; then time each case beside its bound, its plain
+    version, ``torch.bmm`` and the first kernel (``general``, named).
+    Returns the launches of each variant in the driven run and one result
+    per case."""
+    cases = matmul_cases()
     pim_matmul.reset_launches()
     rows = torch_fig5_matmul.run()
     torch.cuda.synchronize()
-    mm_launches = pim_matmul.LAUNCHES["pim_matmul"]
-    say(f"matmul path: benchmarks/torch_fig5_matmul.run() launches {mm_launches}")
-    require(mm_launches > 0, "the Fig 5 benchmark did not launch the matmul kernel")
+    fig5_variant = pim_matmul.plan(2, 128, 128, 128, torch.float32)
+    say(f"matmul path: benchmarks/torch_fig5_matmul.run() launches {dict(pim_matmul.LAUNCHES)}")
+    require(pim_matmul.LAUNCHES[fig5_variant] == 3,
+            f"the Fig 5 benchmark did not launch {fig5_variant} 3 times")
     names = [f"fig5/matmul_n{n}" for n in torch_fig5_matmul.SIZES]
     require([r["name"] for r in rows] == names, f"Fig 5 rows: {[r['name'] for r in rows]}")
     for r in rows:
@@ -139,45 +186,93 @@ def matmul_phase(dev: torch.device, fp32_flops: float) -> tuple[int, list[dict]]
         require((r["us_per_call"] != "") == (r["name"] == "fig5/matmul_n128"),
                 f"Fig 5 row {r['name']}: us_per_call {r['us_per_call']!r}")
 
+    results = []
+    for seed, (label, shape, dtype, fig5) in enumerate(cases):
+        variant = pim_matmul.plan(*shape, dtype)
+        a, b = matmul_inputs(shape, dtype, seed, dev)
+        before = dict(pim_matmul.LAUNCHES)
+        out = ops.pim_matmul_op(a, b)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in pim_matmul.LAUNCHES.items() if v != before[k]}
+        require(launched == {variant: 1},
+                f"matmul {label}: planned {variant}, launched {launched}")
+        ref = pim_matmul.matmul_plain(a, b)
+        require(out.shape == ref.shape and out.dtype == dtype, f"matmul {label} shape")
+        diff = (out.float() - ref.float()).abs()
+        err = float(diff.max().item())
+        rtol, atol = MATMUL_TOL[dtype]
+        require(bool(torch.isfinite(out.float()).all().item()), f"matmul {label} non-finite")
+        require(bool((diff <= atol + rtol * ref.float().abs()).all().item()),
+                f"matmul {variant} differs from its plain version on {label}: "
+                f"max_abs_err {err}")
+        say(f"matmul path: {label} {tuple(shape)} on {variant}: within rtol {rtol} "
+            f"atol {atol} of plain (max_abs_err {err:.3g})")
+        results.append(dict(label=label, shape=shape, dtype=dtype, fig5=fig5,
+                            variant=variant, err=err))
+        del a, b, out, ref, diff
+    launches = dict(pim_matmul.LAUNCHES)
+    say(f"matmul path: launches by variant {launches}")
+    for variant, count in launches.items():
+        require(count > 0, f"matmul variant {variant} never launched on the path")
+
+    for seed, r in enumerate(results):
+        a, b = matmul_inputs(r["shape"], r["dtype"], seed, dev)
+        r["ms"] = cuda_ms(lambda: pim_matmul.matmul(a, b), 10)  # noqa: B023
+        r["plain_ms"] = cuda_ms(lambda: pim_matmul.matmul_plain(a, b), 3)  # noqa: B023
+        r["library_ms"] = cuda_ms(lambda: torch.bmm(a, b), 10)  # noqa: B023
+        first_ms = cuda_ms(lambda: pim_matmul._launch(a, b, "general"), 10)  # noqa: B023
+        r["bound_ms"], r["bound_by"] = matmul_bound(r["shape"], r["dtype"], fp32_flops)
+        say(f"kernel pim_matmul/{r['variant']} on {r['label']} (G={r['shape'][0]}): "
+            f"{r['ms']:.4f} ms/call, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.4f} ms, torch.bmm {r['library_ms']:.4f} ms, first kernel "
+            f"(general) {first_ms:.4f} ms")
+        del a, b
     gen = torch.Generator(device=dev).manual_seed(SEED)
     a, b = (torch.randn((2, 128, 128), generator=gen, device=dev) for _ in range(2))
     say(f"matmul path: the Fig 5 timed instance [2,128,128] f32 back to back: "
         f"{cuda_ms(lambda: ops.pim_matmul_op(a, b), 100):.4f} ms per call over 100 calls")
-    results = []
-    for dtype, dname in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-        for n in torch_fig5_matmul.SIZES:
-            g = MATMUL_ELEMS // (n * n)
-            a = torch.randn((g, n, n), generator=gen, device=dev).to(dtype)
-            b = torch.randn((g, n, n), generator=gen, device=dev).to(dtype)
-            run = lambda: pim_matmul.matmul(a, b)  # noqa: E731
-            plain = lambda: pim_matmul.matmul_plain(a, b)  # noqa: E731
-            out, ref = run(), plain()
-            torch.cuda.synchronize()
-            require(out.shape == (g, n, n) and out.dtype == dtype, f"matmul {dname} n={n} shape")
-            diff = (out.float() - ref.float()).abs()
-            err = float(diff.max().item())
-            rtol, atol = MATMUL_TOL[dtype]
-            require(bool(torch.isfinite(out.float()).all().item()),
-                    f"matmul {dname} n={n} non-finite")
-            require(bool((diff <= atol + rtol * ref.float().abs()).all().item()),
-                    f"matmul kernel differs from its plain version, {dname} n={n}: "
-                    f"max_abs_err {err}")
-            del out, ref, diff
-            ms = cuda_ms(run, 10)
-            plain_ms = cuda_ms(plain, 3)
-            library_ms = cuda_ms(lambda: torch.bmm(a, b), 10)
-            ops_ms = 2 * g * n**3 / (fp32_flops if dtype == torch.float32
-                                      else BF16_TENSOR_FLOPS) * 1e3
-            bytes_ms = 3 * g * n * n * a.element_size() / HBM_BYTES_PER_S * 1e3
-            bms, by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-            label = f"{dname} n={n}"
-            say(f"kernel pim_matmul on {label} (G={g}): equal to plain within rtol "
-                f"{rtol} atol {atol} (max_abs_err {err:.3g}); {ms:.4f} ms/call, bound "
-                f"{bms:.4f} ms ({by}), plain {plain_ms:.4f} ms, torch.bmm {library_ms:.4f} ms")
-            results.append(dict(label=label, err=err, ms=ms, plain_ms=plain_ms,
-                                bound_ms=bms, bound_by=by, library_ms=library_ms))
-            del a, b
-    return mm_launches, results
+    return launches, results
+
+
+def cuobjdump(option: str, lib_path) -> str:
+    """``cuobjdump <option>`` of a built library (the toolkit's, beside
+    ``nvcc``)."""
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    return subprocess.run([tool, option, str(lib_path)], check=True, capture_output=True,
+                          text=True, timeout=300).stdout
+
+
+def check_sass(lib_path) -> dict[str, dict[str, bool]]:
+    """Tensor-core instructions per matmul kernel, from ``cuobjdump -sass`` of
+    the built library: ``HMMA`` or ``HGMMA`` in every bf16 tensor-core
+    variant, neither in any other kernel (no TF32 in float32)."""
+    found: dict[str, dict[str, bool]] = {}
+    for section in cuobjdump("-sass", lib_path).split("Function : ")[1:]:
+        symbol = section.split()[0]
+        for variant in pim_matmul.VARIANTS:
+            if pim_matmul.kernel_symbol(variant) in symbol:
+                seen = found.setdefault(variant, {"HMMA": False, "HGMMA": False})
+                for op in seen:
+                    seen[op] = seen[op] or op in section
+    say(f"sass: tensor-core instructions by matmul variant {found}")
+    require(set(found) == set(pim_matmul.VARIANTS), f"sass: kernels found {sorted(found)}")
+    for variant, seen in found.items():
+        require(any(seen.values()) == (variant in pim_matmul.TENSOR_CORE_VARIANTS),
+                f"{variant}: tensor-core instructions {seen}")
+    return found
+
+
+def kernel_resources(lib_path, symbol: str) -> dict[str, int]:
+    """Most registers and the largest stack frame (bytes a thread, where
+    spills go) over the kernels whose symbol holds ``symbol``, from
+    ``cuobjdump -res-usage`` of the built library.  Raises if none does."""
+    found = [dict(re.findall(r"([A-Z]+):(\d+)", usage)) for name, usage in re.findall(
+        r"Function ([^\s:]+):?\s*\n([^\n]*)", cuobjdump("-res-usage", lib_path))
+        if symbol in name]
+    require(bool(found) and all("REG" in k and "STACK" in k for k in found),
+            f"no resource usage of a kernel {symbol} in {lib_path}")
+    return {"registers": max(int(k["REG"]) for k in found),
+            "stack_bytes": max(int(k["STACK"]) for k in found)}
 
 
 def main() -> int:
@@ -297,10 +392,12 @@ def main() -> int:
         ms = cuda_ms(run, TIMED_LAUNCHES)
         plain_ms = cuda_ms(plain, PLAIN_REPS)
         bms, by = bound_ms(compiled, words, int32_ops_per_s)
+        earlier = (f"; {PERF_MD_FIRST_LOOP}: {PERF_MD_FIRST_LOOP_MS[label]} ms"
+                   if kernel == "bitserial_loop" else "")
         say(f"kernel {kernel} on {label}: {compiled.num_gates} gates, {compiled.num_cols} "
             f"cols, {n_seg} launch(es)/call, W={words} words: equal to plain "
             f"(max_abs_err {err}); {ms:.4f} ms/call, bound {bms:.4f} ms ({by}), "
-            f"plain {plain_ms:.2f} ms")
+            f"plain {plain_ms:.2f} ms{earlier}")
         results.append(dict(label=label, kernel=kernel, err=err, ms=ms,
                             plain_ms=plain_ms, bound_ms=bms, bound_by=by))
 
@@ -309,34 +406,43 @@ def main() -> int:
         f"native f32 x*y then +z on {N} unpacked elements: {native_ms:.4f} ms")
 
     mm_launches, mm_results = matmul_phase(dev, fp32_flops)
+    mm_lib = _build.library_path(*pim_matmul.build_job())
+    check_sass(mm_lib)
 
-    sources = {
+    sources = {  # name: (source, TPU kernel, library, kernel symbol, reported case)
         "bitserial_loop": ("src/repro_torch/kernels/csrc/bitserial_loop.cu",
-                           "src/repro/kernels/pim_bitserial.py:93"),
+                           "src/repro/kernels/pim_bitserial.py:93",
+                           _build.library_path(*pim_bitserial.build_jobs()[0]),
+                           "bitserial_loop_kernel", "f32 MAC memristive"),
         "bitserial_unrolled": ("src/repro_torch/kernels/bitserial_codegen.py",
-                               "src/repro/kernels/pim_bitserial.py:233"),
+                               "src/repro/kernels/pim_bitserial.py:233",
+                               _build.library_path(*pim_bitserial.build_jobs([int8_c.key])[1]),
+                               "bitserial_seg", "int8 MAC memristive"),
     }
-    main_case = {"bitserial_loop": "f32 MAC memristive",
-                 "bitserial_unrolled": "int8 MAC memristive"}
     line = []
-    for name, (source, replaces) in sources.items():
-        r = next(r for r in results if r["label"] == main_case[name])
+    for name, (source, replaces, lib, symbol, case) in sources.items():
+        r = next(r for r in results if r["label"] == case)
         line.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches[name], "max_abs_err": max(
                 q["err"] for q in results if q["kernel"] == name),
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "case": r["label"],
+            **kernel_resources(lib, symbol),
         })
-    r = next(r for r in mm_results if r["label"] == MATMUL_MAIN_CASE)
-    line.append({
-        "name": "pim_matmul", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/pim_matmul.cu",
-        "replaces": "src/repro/kernels/pim_matmul.py:31", "launches": mm_launches,
-        "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-        "library_ms": r["library_ms"], "case": r["label"],
-    })
+    for variant in pim_matmul.VARIANTS:
+        # Each variant reports its largest Fig 5 case, or its last case.
+        runs = [r for r in mm_results if r["variant"] == variant]
+        r = ([q for q in runs if q["fig5"]] or runs)[-1]
+        line.append({
+            "name": f"pim_matmul/{variant}", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/pim_matmul.cu",
+            "replaces": "src/repro/kernels/pim_matmul.py:31", "launches": mm_launches[variant],
+            "max_abs_err": max(q["err"] for q in runs),
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"], "case": r["label"],
+            **kernel_resources(mm_lib, pim_matmul.kernel_symbol(variant)),
+        })
     say(smi)
     say(json.dumps({"kernels": line}))
     say(json.dumps({"ok": True, "device": {

@@ -11,9 +11,11 @@ boundary planes only (``CostReport.hbm_planes``).
 Two kernels, written by hand for Hopper, port the two Pallas kernels of
 ``src/repro/kernels/pim_bitserial.py``:
 
-* ``loop`` — ``csrc/bitserial_loop.cu`` (replaces ``_kernel``): one thread
-  per word walks the gate rows over a crossbar state in shared memory.
-  Any schedule, no per-schedule build.
+* ``loop`` — ``csrc/bitserial_loop.cu`` (replaces ``_kernel``): each thread
+  owns ``LOOP_WORDS_PER_THREAD`` words of a crossbar state in shared memory
+  and walks a packed gate table (:func:`pack_rows`: 8 bytes a row, rows in
+  hazard-free groups of ``GATE_GROUP`` so each group reads all its operands
+  before it writes).  Any schedule, no per-schedule build.
 * ``unrolled`` — generated per schedule by ``bitserial_codegen`` (replaces
   ``_unrolled_segment_kernel``): straight-line code on fixed column
   variables, in hazard-free wave chunks, split into segments of at most
@@ -34,10 +36,12 @@ import ctypes
 import functools
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from repro_torch.core import ir
 from repro_torch.core.machine import (
+    OP_COPY,
     OP_INIT0,
     OP_INIT1,
     OP_MAJ3,
@@ -58,6 +62,25 @@ UNROLL_AUTO_MAX_GATES = 1024
 UNROLL_SEGMENT_GATES = 1024
 # Dynamic shared memory one block may use on Hopper (227 KB).
 SMEM_LIMIT_BYTES = 232_448
+# Loop kernel: the most gates a warp issues together (reads all, then writes
+# all), rows per shared-memory stage of the gate table (two stages), 32-bit
+# words per thread, and the packed row's layout.
+GATE_GROUP = 4
+ROW_CHUNK = 256
+LOOP_WORDS_PER_THREAD = 2
+COL_BITS = 12
+ROW_BYTES = 8
+# A packed row is two 32-bit words of two 16-bit halves, each half a 12-bit
+# column index and 4 more bits: (a | op << 12 | invert << 15 | b << 16,
+# c | (group size - 1) << 12 | o << 16), the group size on a group's first
+# row only.  Every opcode runs as MAJ3(a, b, c) ^ invert, so an operand the
+# opcode does not read names one of two constant columns after the
+# schedule's own: all zeros (``num_cols``) and all ones (``num_cols + 1``).
+OP_SHIFT = 12
+INVERT_SHIFT = 15
+GROUP_SHIFT = 12
+HALF_SHIFT = 16
+MAX_LOOP_COLS = (1 << COL_BITS) - 2  # and the two constant columns
 
 LOOP_SOURCE = Path(__file__).with_name("csrc") / "bitserial_loop.cu"
 
@@ -77,14 +100,76 @@ def reset_launches() -> None:
 
 def words_per_block(num_cols: int) -> int:
     """Packed words per block of the loop kernel: the largest multiple of 32
-    up to ``BLOCK_WORDS`` whose ``[num_cols, words]`` state fits in shared
-    memory."""
-    words = min(BLOCK_WORDS, SMEM_LIMIT_BYTES // (4 * max(num_cols, 1)) // 32 * 32)
+    (at most 1024 threads) whose ``[num_cols + 2, words]`` state (with the
+    two constant columns) fits in shared memory beside the two gate-table
+    stages."""
+    room = SMEM_LIMIT_BYTES - 2 * ROW_CHUNK * ROW_BYTES
+    words = min(1024 * LOOP_WORDS_PER_THREAD,
+                room // (4 * (max(num_cols, 1) + 2)) // 32 * 32)
     if words < 32:
         raise ValueError(
             f"a {num_cols}-column schedule does not fit the loop kernel's "
             f"shared memory even at 32 words per block")
     return words
+
+
+def loop_operands(op: int, a: int, b: int, c: int, num_cols: int) -> tuple[int, int, int, bool]:
+    """``(a, b, c, invert)`` with which the loop kernel runs a row as
+    ``MAJ3(a, b, c) ^ invert``: NOR(a, b) = ~MAJ3(a, b, 1), NOT(a) =
+    ~MAJ3(a, 1, 0), COPY(a) = MAJ3(a, 1, 0), INIT0/INIT1 = MAJ3(0, 0, 0)
+    and its inverse, with 0 and 1 the constant columns ``num_cols`` and
+    ``num_cols + 1``."""
+    zero, ones = num_cols, num_cols + 1
+    if op == OP_NOR:
+        return a, b, ones, True
+    if op == OP_MAJ3:
+        return a, b, c, False
+    if op in (OP_NOT, OP_COPY):
+        return a, ones, zero, op == OP_NOT
+    return zero, zero, zero, op == OP_INIT1
+
+
+def loop_groups(compiled: ir.CompiledSchedule) -> list[list[tuple[int, int, int, int, int]]]:
+    """The loop kernel's row order: the schedule's rows in program order,
+    each hazard-free wave chunk cut into groups of at most ``GATE_GROUP``.
+    A group never straddles a ``ROW_CHUNK`` stage: the stage's tail, and the
+    table's, is filled with one-row groups that write zero into the zero
+    column ``num_cols``.  A group read in full before it is written computes
+    what program order computes."""
+    pad = [(OP_INIT0, 0, 0, 0, compiled.num_cols)]
+    groups: list[list[tuple[int, int, int, int, int]]] = []
+    used = 0  # rows in the current stage
+    rows = [tuple(int(x) for x in row) for row in compiled.ops]
+    for chunk in _wave_chunks(rows):
+        for i in range(0, len(chunk), GATE_GROUP):
+            group = chunk[i:i + GATE_GROUP]
+            if used + len(group) > ROW_CHUNK:
+                groups += [pad] * (ROW_CHUNK - used)
+                used = 0
+            groups.append(group)
+            used = (used + len(group)) % ROW_CHUNK
+    groups += [pad] * ((ROW_CHUNK - used) % ROW_CHUNK)
+    return groups
+
+
+def pack_rows(compiled: ir.CompiledSchedule) -> torch.Tensor:
+    """The loop kernel's gate table: the rows of :func:`loop_groups` with
+    the operands of :func:`loop_operands`, packed into 8 bytes each,
+    ``int32 [rows, 2]``.  Raises ``ValueError`` if a column index does not
+    fit 12 bits or the state does not fit shared memory."""
+    n = compiled.num_cols
+    if n > MAX_LOOP_COLS:
+        raise ValueError(f"a {n}-column schedule and two constant columns do not "
+                         f"fit the loop kernel's {COL_BITS}-bit column indices")
+    words_per_block(n)
+    table = []
+    for group in loop_groups(compiled):
+        for i, (op, a, b, c, o) in enumerate(group):
+            a, b, c, invert = loop_operands(op, a, b, c, n)
+            size = len(group) - 1 if i == 0 else 0
+            table.append((a | op << OP_SHIFT | invert << INVERT_SHIFT | b << HALF_SHIFT,
+                          c | size << GROUP_SHIFT | o << HALF_SHIFT))
+    return torch.from_numpy(np.array(table, dtype=np.uint32).reshape(-1, 2).view(np.int32))
 
 
 def loop_plain(compiled: ir.CompiledSchedule, planes: torch.Tensor) -> torch.Tensor:
@@ -113,7 +198,7 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 def _launch_loop(key: str, planes: torch.Tensor) -> torch.Tensor:
     compiled = _SCHEDULES[key]
-    gates, in_slots, out_slots = _gate_table(key, planes.device)
+    table, in_slots, out_slots = _loop_table(key, planes.device)
     lib = _loop_lib()
     n_in, W = planes.shape
     out = torch.empty((out_slots.shape[0], W), dtype=torch.int32,
@@ -122,9 +207,9 @@ def _launch_loop(key: str, planes: torch.Tensor) -> torch.Tensor:
         return out
     stream = torch.cuda.current_stream(planes.device).cuda_stream
     err = lib.bitserial_loop_launch(
-        planes.data_ptr(), out.data_ptr(), gates.data_ptr(),
+        planes.data_ptr(), out.data_ptr(), table.data_ptr(),
         in_slots.data_ptr(), out_slots.data_ptr(), n_in, out.shape[0],
-        gates.shape[0], compiled.num_cols, W,
+        table.shape[0], compiled.num_cols, W,
         words_per_block(compiled.num_cols), stream)
     _check(lib, err, f"bitserial_loop launch for {key!r}")
     LAUNCHES["bitserial_loop"] += 1
@@ -256,8 +341,8 @@ def _launch_unrolled(key: str, planes: torch.Tensor) -> torch.Tensor:
 
 # Registry of compiled schedules by key.
 _SCHEDULES: dict[str, ir.CompiledSchedule] = {}
-# Loop-kernel gate tables uploaded once per (key, device).
-_GATE_TABLES: dict[str, dict[torch.device, tuple]] = {}
+# Loop-kernel packed gate tables uploaded once per (key, device).
+_LOOP_TABLES: dict[str, dict[torch.device, tuple]] = {}
 # Wave-chunked straight-line segments and their built libraries.
 _SEGMENTS: dict[str, list] = {}
 _UNROLLED_LIBS: dict[str, ctypes.CDLL] = {}
@@ -267,7 +352,7 @@ _GENERATIONS: dict[str, int] = {}
 
 
 def _invalidate(key: str) -> None:
-    _GATE_TABLES.pop(key, None)
+    _LOOP_TABLES.pop(key, None)
     _SEGMENTS.pop(key, None)
     _UNROLLED_LIBS.pop(key, None)
     _GENERATIONS[key] = _GENERATIONS.get(key, 0) + 1
@@ -283,15 +368,17 @@ def _check_columns(key: str, compiled: ir.CompiledSchedule) -> None:
                          f"0..{compiled.num_cols - 1}")
 
 
-def _gate_table(key: str, device: torch.device) -> tuple:
-    """``(gates [G, 5], input slots, output slots)`` int32 on ``device``."""
-    per_device = _GATE_TABLES.setdefault(key, {})
+def _loop_table(key: str, device: torch.device) -> tuple:
+    """``(packed gate table [rows, 2], input slots, output slots)`` int32 on
+    ``device``, built once per key and device."""
+    per_device = _LOOP_TABLES.setdefault(key, {})
     table = per_device.get(device)
     if table is None:
         compiled = _SCHEDULES[key]
+        slots = (torch.tensor(x, dtype=torch.int32)
+                 for x in (compiled.input_slots, compiled.output_slots))
         table = per_device[device] = tuple(
-            torch.tensor(x, dtype=torch.int32, device=device).contiguous()
-            for x in (compiled.ops, compiled.input_slots, compiled.output_slots))
+            x.to(device).contiguous() for x in (pack_rows(compiled), *slots))
     return table
 
 

@@ -167,9 +167,11 @@ def test_rebound_key_does_not_replay_stale_kernel():
 
 
 def test_loop_kernel_block_and_validation():
-    assert pim_bitserial.words_per_block(160) == 256
-    assert pim_bitserial.words_per_block(163) == 256  # fixed_div, the widest op
-    assert pim_bitserial.words_per_block(300) == 192
+    # The state (one spare column) and two 256-row stages of the packed gate
+    # table share the 227 KB; no BLOCK_WORDS cap.
+    assert pim_bitserial.words_per_block(160) == 352
+    assert pim_bitserial.words_per_block(163) == 320  # fixed_div, the widest op
+    assert pim_bitserial.words_per_block(300) == 160
     with pytest.raises(ValueError):
         pim_bitserial.words_per_block(2000)
     bad = ir.compile_op("fixed_add", 8)

@@ -2,7 +2,12 @@
 version and ``ops.pim_matmul_op(device="cpu")`` equal the reference Pallas
 kernel (interpret mode) and ``ref.matmul_ref`` within the reference's own
 tolerances, and the port accepts and refuses exactly the shapes the
-reference accepts and refuses."""
+reference accepts and refuses.  The kernel variant the card would run is
+planned here too: by Fig 5 size and type, ``general`` for ragged shapes,
+never the tensor cores for float32."""
+
+import itertools
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -53,11 +58,11 @@ def test_matmul_matches_reference(shape, dtype):
     (ja, ta), (jb, tb) = _both(a, dtype), _both(b, dtype)
     want_kernel = ref_ops.pim_matmul_op(ja, jb)
     want_ref = ref_ref.matmul_ref(ja, jb)
-    before = pim_matmul.LAUNCHES["pim_matmul"]
+    before = sum(pim_matmul.LAUNCHES.values())
     got_op = ops.pim_matmul_op(ta, tb, device="cpu")
     got_plain = pim_matmul.matmul_plain(ta, tb)
     got_ref = ref.matmul_ref(ta, tb)
-    assert pim_matmul.LAUNCHES["pim_matmul"] == before  # CPU: no kernel launch
+    assert sum(pim_matmul.LAUNCHES.values()) == before  # CPU: no kernel launch
     for got in (got_op, got_plain, got_ref):
         assert got.shape == (G, M, N) and got.dtype == DTYPES[dtype][1]
         _close(got, want_kernel, dtype)
@@ -116,3 +121,54 @@ def test_matmul_without_a_card_raises(monkeypatch):
     a = np.ones((1, 16, 16), np.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ops.pim_matmul_op(a, a)
+
+
+FIG5_PLAN = {torch.float32: {16: "f32_small", 32: "f32_small", 64: "f32_small",
+                             128: "f32_simt128", 256: "f32_simt128", 512: "f32_simt128"},
+             torch.bfloat16: {16: "bf16_mma", 32: "bf16_mma", 64: "bf16_wgmma64",
+                              128: "bf16_wgmma128", 256: "bf16_wgmma128",
+                              512: "bf16_wgmma128"}}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [16, 32, 64, 128, 256, 512])
+def test_plan_picks_the_variant_for_each_fig5_size(n, dtype):
+    assert pim_matmul.plan(2**26 // n**2, n, n, n, dtype) == FIG5_PLAN[dtype][n]
+    assert pim_matmul.plan(2, n, n, n, dtype) == FIG5_PLAN[dtype][n]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 33, 17, 65), (2, 17, 100, 9), (1, 192, 96, 64),
+                                   (3, 16, 16, 32), (1, 48, 48, 48), (1, 64, 32, 64)])
+def test_plan_gives_ragged_shapes_the_general_variant(shape, dtype):
+    assert pim_matmul.plan(*shape, dtype) == "general"
+
+
+def test_plan_never_puts_float32_on_the_tensor_cores():
+    dims = (8, 16, 17, 32, 33, 64, 96, 128, 192, 256, 384, 512)
+    seen = set()
+    for m, k, n in itertools.product(dims, repeat=3):
+        f32 = pim_matmul.plan(3, m, k, n, torch.float32)
+        bf = pim_matmul.plan(3, m, k, n, torch.bfloat16)
+        assert f32 not in pim_matmul.TENSOR_CORE_VARIANTS
+        assert f32.startswith("f32_") or f32 == "general"
+        assert bf.startswith("bf16_") or bf == "general"
+        if bf.startswith("bf16_wgmma"):  # what the TMA-fed kernel requires
+            tile = 128 if bf == "bf16_wgmma128" else 64
+            assert m % tile == 0 and n % tile == 0 and k % 64 == 0
+        seen |= {f32, bf}
+    assert seen == set(pim_matmul.VARIANTS)
+
+
+def test_variant_numbering_matches_the_kernel_source():
+    enum = re.search(r"enum Variant \{([^}]*)\}", pim_matmul.SOURCE.read_text()).group(1)
+    numbers = {name.strip().lower(): int(v) for name, v in re.findall(r"(\w+) = (\d+)", enum)}
+    assert numbers == {name: i for i, name in enumerate(pim_matmul.VARIANTS)}
+
+
+def test_each_variant_has_its_kernel_in_the_source():
+    """``kernel_symbol`` names a ``__global__`` kernel of the source for each
+    variant (the card run reads registers and SASS by that name)."""
+    kernels = re.findall(r"__global__ void (?:__launch_bounds__\([^)]*\) )?(\w+)\(",
+                         pim_matmul.SOURCE.read_text())
+    assert sorted(kernels) == sorted(pim_matmul.kernel_symbol(v) for v in pim_matmul.VARIANTS)
