@@ -25,7 +25,8 @@ import torch
 BASES = ("memristive", "dram")
 
 
-def parse_args(argv=None) -> argparse.Namespace:
+def make_parser() -> argparse.ArgumentParser:
+    """The common flags; a benchmark may add its own before parsing."""
     p = argparse.ArgumentParser(description="ConvPIM benchmark (PyTorch/CUDA port)")
     p.add_argument("--basis", choices=(*BASES, "both"), default="both",
                    help="logic basis to report (default: both)")
@@ -34,7 +35,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "pipeline; pass an empty string for no passes")
     p.add_argument("--device", default=None,
                    help="torch device to run on (default: the CUDA card)")
-    return p.parse_args(argv)
+    return p
 
 
 def passes_from_args(args) -> tuple[str, ...] | None:
@@ -50,7 +51,7 @@ def bases_from_args(args) -> tuple[str, ...]:
 
 def run_cli(run_fn, argv=None) -> None:
     """Shared benchmark main: parse the common flags, run, emit CSV."""
-    args = parse_args(argv)
+    args = make_parser().parse_args(argv)
     emit(run_fn(bases=bases_from_args(args), passes=passes_from_args(args),
                 device=args.device))
 

@@ -18,15 +18,32 @@ have launched for each call, holds each result against the plain version,
 then times each case beside its bound, its plain version, ``torch.bmm`` and
 the first, untiled matmul kernel (kept as the ``general`` variant, named
 for the call).  It reads the matmul library's SASS: every bf16 tensor-core
-variant must hold ``HMMA`` or ``HGMMA``, no float32 variant either.  It
-prints one JSON line of kernels, with the registers and stack frame of
-each read from the built library, and, last, ``{"ok": true, "device":
-{...}}``.  Any failed check raises; nothing falls back to the CPU or to a
-plain version.  Imports nothing of JAX.
+variant must hold ``HMMA`` or ``HGMMA``, no float32 variant either.
+
+The paper's CNN comparison follows: each of AlexNet, GoogLeNet and
+ResNet-50 (parameters from seed 0) runs its float32 logits on the card with
+TF32 off and is held against the same model in float64 on the CPU (max-abs
+error at most ``CNN_TOL`` of the largest logit; the TF32 error is printed
+beside it); then Fig 6 and Fig 7 (``benchmarks/torch_fig{6,7}_*.run()``,
+batch 8, 224×224), and per model and mode the step time by CUDA events, by
+the host clock and to enqueue, the profiler's device-busy time, the share
+of the fp32 peak and peak memory.  It prints the Fig 4 rows, runs
+``examples/torch_quickstart.py`` on the card (its f32 MAC on the loop
+kernel, its analyzer verdicts against the H100) and the Fig 8 verdict of
+each measured CNN step, and runs ``benchmarks/torch_smoke.main()`` at 4096
+elements and at 2^24, each with its gate (the straight-line kernel faster
+than the loop kernel on the f32 MAC), writing
+``build/BENCH_exec_torch_*.json``.  It prints one JSON line of kernels,
+with the registers and stack frame of each read from the built library,
+and, last, ``{"ok": true, "device": {...}}``.  Any failed check raises;
+nothing falls back to the CPU or to a plain version.  Imports nothing of
+JAX.
 """
 
 from __future__ import annotations
 
+import copy
+import importlib.util
 import json
 import os
 import re
@@ -41,8 +58,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
 
 import repro_torch.pim as pim  # noqa: E402
-from benchmarks import torch_fig5_matmul  # noqa: E402
+from benchmarks import (torch_fig4_cc, torch_fig5_matmul, torch_fig6_cnn_infer,  # noqa: E402
+                        torch_fig7_cnn_train, torch_smoke)
+from repro_torch.core.analyzer import Workload, analyze  # noqa: E402
+from repro_torch.core.costmodel import H100  # noqa: E402
 from repro_torch.kernels import _build, ops, pim_bitserial, pim_matmul  # noqa: E402
+from repro_torch.models import cnn  # noqa: E402
 
 N = 1 << 24
 SEED = 0
@@ -60,6 +81,14 @@ PERF_MD_FIRST_LOOP = "PERF.md's record of the first loop kernel (H100 80GB HBM3,
 PERF_MD_FIRST_LOOP_MS = {"f32 MAC memristive": 40.4022, "f32 MAC dram": 30.3298}
 TIMED_LAUNCHES = 20
 PLAIN_REPS = 2
+# CNN logits on the card (float32, TF32 off) against float64 on the CPU:
+# max-abs error at most this share of the largest |logit|.  TF32 rounds each
+# product's inputs to 10 mantissa bits (relative 2^-11 = 4.9e-4), which this
+# bound is meant to refuse; the run prints the TF32 error beside it.
+CNN_TOL = 1e-4
+CNN_CHECK_BATCH = 2
+CNN_STEP_REPS = 10
+EXEC_JSON = {n: os.path.join(ROOT, "build", f"BENCH_exec_torch_{n}.json") for n in (4096, N)}
 
 F32_SPECIALS = np.array(
     [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45, 1.1754942e-38,
@@ -275,6 +304,149 @@ def kernel_resources(lib_path, symbol: str) -> dict[str, int]:
             "stack_bytes": max(int(k["STACK"]) for k in found)}
 
 
+def cnn_logits_check(dev: torch.device) -> None:
+    """Each CNN's float32 logits on the card (TF32 off) against the same
+    model in float64 on the CPU, at batch 2, 224×224, parameters from seed
+    0; ResNet-50 in eval and train mode (the others have no batch norm).
+    Prints the error with TF32 on beside it."""
+    x = torch.randn((CNN_CHECK_BATCH, 3, 224, 224),
+                    generator=torch.Generator().manual_seed(SEED + 1))
+    for name in torch_fig6_cnn_infer.NAMES:
+        model = cnn.MODELS[name](device="cpu", generator=torch.Generator().manual_seed(SEED))
+        ref_model = copy.deepcopy(model).double()
+        card = model.to(dev)
+        for train in ((False, True) if name == "resnet50" else (False,)):
+            with torch.no_grad():
+                ref = ref_model.train(train)(x.double())
+                got = card.train(train)(x.to(dev)).double().cpu()
+                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+                got_tf32 = card(x.to(dev)).double().cpu()
+                torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+            scale = float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            err_tf32 = float((got_tf32 - ref).abs().max())
+            mode = "train" if train else "eval"
+            require(got.shape == (CNN_CHECK_BATCH, 1000) and bool(torch.isfinite(got).all()),
+                    f"{name} {mode}: logits shape {tuple(got.shape)} or non-finite")
+            require(err <= CNN_TOL * scale,
+                    f"{name} {mode}: card float32 logits off float64 by {err:.3g} "
+                    f"(> {CNN_TOL} x {scale:.4g})")
+            say(f"cnn: {name} {mode} batch {CNN_CHECK_BATCH} 224x224: float32 on the card "
+                f"(TF32 off) within {err / scale:.3g} x max|logit| of float64 on the CPU "
+                f"(max|logit| {scale:.4g}, bound {CNN_TOL}); with TF32 on: "
+                f"{err_tf32 / scale:.3g} x max|logit|"
+                f" ({'fails' if err_tf32 > CNN_TOL * scale else 'passes'} the bound)")
+        del model, ref_model, card
+
+
+def device_busy_ms(step, reps: int) -> float:
+    """Device time of ``reps`` calls of ``step`` summed over the kernels
+    ``torch.profiler`` saw, per call (0.0 if it saw no device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / reps
+
+
+def cnn_phase(dev: torch.device, smi: str) -> dict:
+    """Fig 6 and Fig 7 on the card at batch 8, 224×224, float32, then per
+    model and mode: CUDA-event and host-clock time per step, the host's
+    enqueue time, the profiler's device-busy time, FLOP/s as a share of the
+    H100's fp32 peak, and peak device memory.  Returns the measured steps
+    (name, train) -> (flops, bytes, event ms)."""
+    cnn_logits_check(dev)
+    rows = torch_fig6_cnn_infer.run(device=dev) + torch_fig7_cnn_train.run(device=dev)
+    want = [f"{tag}/{n}" for tag in ("fig6", "fig7") for n in torch_fig6_cnn_infer.NAMES]
+    require([r["name"] for r in rows] == want, f"Fig 6/7 rows: {[r['name'] for r in rows]}")
+    for r in rows:
+        require(all(v != "" for v in r.values()) and float(r["us_per_call"]) > 0,
+                f"Fig 6/7 row {r['name']} incomplete: {r}")
+        say(f"cnn: {json.dumps(r)}")
+    measured = {}
+    for train in (False, True):
+        for name in torch_fig6_cnn_infer.NAMES:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            step = torch_fig6_cnn_infer.make_step(name, train, dev)
+            flops, bytes_ = cnn.step_cost(name, torch_fig6_cnn_infer.BATCH, 224, train)
+            with torch_fig6_cnn_infer.full_precision():
+                event_ms = cuda_ms(step, CNN_STEP_REPS)
+                t0 = time.perf_counter()
+                for _ in range(CNN_STEP_REPS):
+                    step()
+                enqueue_ms = (time.perf_counter() - t0) * 1e3 / CNN_STEP_REPS
+                torch.cuda.synchronize()
+                host_ms = (time.perf_counter() - t0) * 1e3 / CNN_STEP_REPS
+                busy_ms = device_busy_ms(step, 3)
+            peak = torch.cuda.max_memory_allocated()
+            bound = max(flops / H100.peak_fp32, bytes_ / H100.mem_bw) * 1e3
+            mode = "train" if train else "infer"
+            busy = (f"{busy_ms:.4f} ms ({busy_ms / host_ms:.1%} of the host-clock step)"
+                    if busy_ms > 0 else "not measured (the profiler saw no device time)")
+            say(f"cnn: {name} {mode} batch {torch_fig6_cnn_infer.BATCH}: "
+                f"{event_ms:.4f} ms/step by CUDA events (mean of {CNN_STEP_REPS} back to "
+                f"back), {host_ms:.4f} ms by the host clock, {enqueue_ms:.4f} ms to enqueue; "
+                f"device busy {busy}; {flops / (event_ms * 1e-3) / 1e12:.2f} TFLOP/s = "
+                f"{flops / (event_ms * 1e-3) / H100.peak_fp32:.1%} of the fp32 peak "
+                f"{H100.peak_fp32 / 1e12:.0f} TFLOP/s ({smi}); fp32 roofline {bound:.4f} ms; "
+                f"peak memory {peak / 2**20:.1f} MiB")
+            measured[(name, train)] = (flops, bytes_, event_ms)
+            del step
+    return measured
+
+
+def fig4_fig8_phase(dev: torch.device, measured: dict) -> None:
+    """The Fig 4 rows, the quickstart (its f32 MAC on the card and its
+    analyzer verdicts against the H100), and the Fig 8 verdict of each CNN
+    step measured here."""
+    rows = torch_fig4_cc.run()
+    require(len(rows) == 4 and all("improvement_vs_h100_membound" in r for r in rows),
+            "Fig 4 rows")
+    for r in rows:
+        say(f"fig4: {json.dumps(r)}")
+    spec = importlib.util.spec_from_file_location(
+        "torch_quickstart", os.path.join(ROOT, "examples", "torch_quickstart.py"))
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    verdicts = quickstart.main(["--device", str(dev)])
+    require([v.pim_wins for v in verdicts] == [True, False],
+            f"quickstart verdicts: {verdicts}")
+    for (name, train), (flops, bytes_, ms) in measured.items():
+        v = analyze(Workload(f"{name} {'train' if train else 'infer'}", flops, bytes_))
+        say(f"fig8: {v.workload}: reuse {v.reuse:.1f} FLOP/B, {v.quadrant}, modeled PIM "
+            f"{v.pim_time_s * 1e3:.4f} ms vs H100 roofline (dense 16-bit) "
+            f"{v.gpu_time_s * 1e3:.4f} ms -> PIM {'wins' if v.pim_wins else 'loses'}; "
+            f"measured fp32 step {ms:.4f} ms")
+
+
+def exec_phase() -> dict:
+    """``torch_smoke.main()`` on the card at 4096 elements and at 2^24, each
+    with its exec gate (the straight-line kernel faster than the loop kernel
+    on the f32 MAC); returns each run's launches by kernel."""
+    launches = {}
+    for elems, path in EXEC_JSON.items():
+        pim_bitserial.reset_launches()
+        pim_matmul.reset_launches()
+        torch_smoke.main(["--elems", str(elems), "--json", path])
+        torch.cuda.synchronize()
+        launches[elems] = {**pim_bitserial.LAUNCHES,
+                           **{f"pim_matmul/{k}": v for k, v in pim_matmul.LAUNCHES.items() if v}}
+        for kernel in ("bitserial_loop", "bitserial_unrolled", "pim_matmul/f32_simt128"):
+            require(launches[elems].get(kernel, 0) > 0,
+                    f"smoke at {elems} elements never launched {kernel}")
+        with open(path) as f:
+            record = json.load(f)
+        require(record["elems"] == elems and len(record["rows"]) == 6, f"{path}: {record}")
+        us = {r["name"].rsplit("/", 1)[1]: r["us_per_call"] for r in record["rows"]
+              if r["name"].startswith("exec/f32_mac/")}
+        say(f"exec: {elems} elements, f32 MAC memristive, us per call {us}; "
+            f"launches in the smoke run {launches[elems]}; rows in {os.path.relpath(path, ROOT)}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -408,6 +580,20 @@ def main() -> int:
     mm_launches, mm_results = matmul_phase(dev, fp32_flops)
     mm_lib = _build.library_path(*pim_matmul.build_job())
     check_sass(mm_lib)
+
+    t0 = time.perf_counter()
+    measured = cnn_phase(dev, smi)
+    say(f"cnn: phase took {time.perf_counter() - t0:.1f} s wall")
+    pim_bitserial.reset_launches()
+    pim_matmul.reset_launches()
+    fig4_fig8_phase(dev, measured)
+    torch.cuda.synchronize()
+    say(f"fig8: quickstart launches {dict(pim_bitserial.LAUNCHES)}")
+    require(pim_bitserial.LAUNCHES["bitserial_loop"] == 1,
+            "the quickstart's f32 MAC did not run on the loop kernel")
+    t0 = time.perf_counter()
+    exec_phase()
+    say(f"exec: phase took {time.perf_counter() - t0:.1f} s wall")
 
     sources = {  # name: (source, TPU kernel, library, kernel symbol, reported case)
         "bitserial_loop": ("src/repro_torch/kernels/csrc/bitserial_loop.cu",

@@ -5,6 +5,8 @@ from the fields of a reference schedule, so a schedule compiled elsewhere
 runs through the port's executors unchanged (separating compiler faults
 from executor faults).  ``planes_from_numpy``/``planes_to_numpy`` convert
 uint32 bit-planes to and from the port's int32 carrier, bit for bit.
+``cnn_state_dict`` turns a reference CNN's parameter tree into the port
+model's ``state_dict``.
 """
 
 from __future__ import annotations
@@ -55,3 +57,43 @@ def planes_from_numpy(planes: np.ndarray, device=None) -> torch.Tensor:
 def planes_to_numpy(planes: torch.Tensor) -> np.ndarray:
     """int32 planes tensor → uint32 numpy array with the same bits."""
     return planes.detach().cpu().contiguous().numpy().view(np.uint32)
+
+
+def cnn_state_dict(name: str, params) -> dict[str, torch.Tensor]:
+    """The reference CNN parameter tree ``params`` (nested dicts and lists of
+    numpy arrays, as ``repro.models.cnn``'s ``init_<name>`` makes them) as
+    the ``state_dict`` of ``repro_torch.models.cnn.MODELS[name]``, float32 on
+    the CPU.  Conv weights go from HWIO to OIHW, FC weights from
+    ``(cin, cout)`` to ``(cout, cin)``; biases and batch norm's ``scale``,
+    ``bias``, ``mean`` and ``var`` keep their values.  Raises ``ValueError``
+    unless the keys and shapes are exactly the model's."""
+    from repro_torch.models import cnn
+
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            items = node.items()
+        elif isinstance(node, (list, tuple)):
+            items = enumerate(node)
+        else:
+            leaf = path[-1]
+            value = np.array(node, dtype=np.float32)  # a writable copy
+            if leaf == "w":
+                leaf = "weight"
+                value = value.transpose(3, 2, 0, 1) if value.ndim == 4 else value.T
+            elif leaf == "b":
+                leaf = "bias"
+            out[".".join([*map(str, path[:-1]), leaf])] = torch.from_numpy(
+                np.ascontiguousarray(value))
+            return
+        for key, child in items:
+            walk(child, (*path, key))
+
+    walk(params, ())
+    want = {k: tuple(v.shape) for k, v in cnn.MODELS[name](device="meta").state_dict().items()}
+    got = {k: tuple(v.shape) for k, v in out.items()}
+    if got != want:
+        diff = sorted(set(got.items()) ^ set(want.items()))
+        raise ValueError(f"{name}: parameters do not match the model: {diff[:6]}")
+    return out

@@ -110,6 +110,7 @@ class GPUConfig:
     peak_fp16: float
     mem_bytes: int
     max_power_w: float
+    link_bw: float  # NVLink bytes/s per GPU, all links, both directions
 
     def membound_throughput(self, bytes_per_op: int) -> float:
         return self.mem_bw / bytes_per_op
@@ -138,6 +139,9 @@ DRAM_PIM = PIMConfig(
     basis="dram",
 )
 
+# NVIDIA RTX A6000 data sheet
+# (https://www.nvidia.com/en-us/design-visualization/rtx-a6000/): the NVLink
+# bridge joins two cards at 112.5 GB/s (bidirectional).
 A6000 = GPUConfig(
     name="A6000",
     mem_bw=768e9,
@@ -145,8 +149,12 @@ A6000 = GPUConfig(
     peak_fp16=77.4e12,
     mem_bytes=48 * GIB,
     max_power_w=300.0,
+    link_bw=112.5e9,
 )
 
+# NVIDIA A100 data sheet (https://www.nvidia.com/en-us/data-center/a100/):
+# NVLink 600 GB/s (the PCIe part's bridge for two cards and the SXM part
+# alike).
 A100 = GPUConfig(
     name="A100",
     mem_bw=1935e9,
@@ -154,12 +162,13 @@ A100 = GPUConfig(
     peak_fp16=312e12,
     mem_bytes=80 * GIB,
     max_power_w=300.0,
+    link_bw=600e9,
 )
 
 # NVIDIA H100 SXM data sheet
 # (https://www.nvidia.com/en-us/data-center/h100/): HBM3 bandwidth, FP32
 # outside the tensor cores, dense bf16/fp16 tensor-core rate (the same
-# convention as A100's 312e12), 80 GB, 700 W maximum power.
+# convention as A100's 312e12), 80 GB, 700 W maximum power, NVLink 900 GB/s.
 H100 = GPUConfig(
     name="H100",
     mem_bw=3.35e12,
@@ -167,6 +176,7 @@ H100 = GPUConfig(
     peak_fp16=989e12,
     mem_bytes=80 * GIB,
     max_power_w=700.0,
+    link_bw=900e9,
 )
 
 # Paper Fig 3 measured GPU throughputs (A6000, 32-bit ops), ops/s.

@@ -1,7 +1,8 @@
 """The port's cost model and metrics against the JAX reference: every field
 of every shared configuration and paper table, the derived throughputs and
-power, and the Fig 4 points are equal; the H100 configuration carries the
-data sheet's numbers."""
+power, and the Fig 4 points are equal; the port's GPU configurations add
+only ``link_bw`` (NVLink, from each data sheet); the H100 configuration
+carries the data sheet's numbers."""
 
 import dataclasses
 
@@ -14,13 +15,17 @@ from repro_torch.core import costmodel, ir, metrics
 
 SHARED = ("MEMRISTIVE_PIM", "DRAM_PIM", "A6000", "A100")
 TABLES = ("PAPER_GPU_MEASURED", "PAPER_GATE_COUNTS", "PAPER_PIM_THROUGHPUT")
+LINK_BW = {"A6000": 112.5e9, "A100": 600e9, "H100": 900e9}  # NVLink, data sheets
 
 
 @pytest.mark.parametrize("name", SHARED + TABLES + ("GIB",))
 def test_shared_configs_and_tables_equal_reference(name):
     port, ref = getattr(costmodel, name), getattr(ref_cm, name)
     if dataclasses.is_dataclass(port):
-        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+        fields = dataclasses.asdict(port)
+        if isinstance(port, costmodel.GPUConfig):
+            assert fields.pop("link_bw") == LINK_BW[name]
+        assert fields == dataclasses.asdict(ref)
         assert type(port).__name__ == type(ref).__name__
     else:
         assert port == ref
@@ -63,8 +68,8 @@ def test_gpu_derived_numbers(name):
 
 def test_h100_data_sheet_and_machine_balance():
     h = costmodel.H100
-    assert (h.mem_bw, h.peak_fp32, h.peak_fp16, h.mem_bytes, h.max_power_w) == (
-        3.35e12, 67e12, 989e12, 80 * costmodel.GIB, 700.0)
+    assert (h.mem_bw, h.peak_fp32, h.peak_fp16, h.mem_bytes, h.max_power_w, h.link_bw) == (
+        3.35e12, 67e12, 989e12, 80 * costmodel.GIB, 700.0, LINK_BW["H100"])
     assert 250 < metrics.machine_balance(h) < 320
     assert not hasattr(costmodel, "TPU_V5E") and not hasattr(costmodel, "TPUConfig")
 

@@ -183,3 +183,25 @@ def test_fig5_benchmark_on_card(cuda):
     assert [r["name"] for r in rows] == [f"fig5/matmul_n{n}"
                                          for n in torch_fig5_matmul.SIZES]
     assert float(rows[3]["us_per_call"]) > 0
+
+
+@pytest.mark.parametrize("name,batch,img,train", [
+    ("alexnet", 1, 224, False), ("googlenet", 2, 64, False),
+    ("resnet50", 2, 64, False), ("resnet50", 2, 96, True)])
+def test_cnn_logits_on_card_match_float64(cuda, name, batch, img, train):
+    """The CNN in float32 on the card, TF32 off in cuBLAS and cuDNN, against
+    the same parameters in float64 on the CPU: max-abs error at most 1e-4
+    of the largest logit (a bound TF32's 10-bit products would break)."""
+    import copy
+
+    from benchmarks.torch_fig6_cnn_infer import full_precision
+    from repro_torch.models import cnn
+
+    model = cnn.MODELS[name](device="cpu").train(train)
+    ref_model = copy.deepcopy(model).double()
+    x = torch.randn((batch, 3, img, img), generator=torch.Generator().manual_seed(7))
+    with torch.no_grad(), full_precision():
+        want = ref_model(x.double())
+        got = model.to(cuda)(x.to(cuda)).double().cpu()
+    assert got.shape == want.shape == (batch, 1000)
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())

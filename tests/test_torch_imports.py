@@ -1,6 +1,7 @@
 """The port stands alone: importing ``repro_torch`` and every submodule, the
-port's benchmarks ``benchmarks/torch_*.py`` or ``chip_smoke.py`` loads
-neither JAX, ml_dtypes nor the reference package."""
+port's benchmarks ``benchmarks/torch_*.py``, ``examples/torch_quickstart.py``
+or ``chip_smoke.py`` loads neither JAX, ml_dtypes nor the reference
+package."""
 
 import glob
 import os
@@ -20,6 +21,10 @@ names += sorted("benchmarks." + os.path.basename(p)[:-3] for p in glob.glob(
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import importlib.util
+spec = importlib.util.spec_from_file_location(
+    "torch_quickstart", os.path.join({root!r}, "examples", "torch_quickstart.py"))
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
 print(len(names), bad)
 assert not bad, bad
@@ -34,7 +39,7 @@ def test_port_imports_no_jax_and_no_reference():
                           text=True, timeout=120, env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 23  # 19 modules of repro_torch, 4 benchmarks
+    assert n_modules >= 33  # 22 modules of repro_torch, 11 benchmarks
 
 
 def _port_sources():
@@ -42,12 +47,14 @@ def _port_sources():
     for dirpath, _, files in os.walk(src):
         yield from (os.path.join(dirpath, f) for f in files if f.endswith(".py"))
     yield from glob.glob(os.path.join(ROOT, "benchmarks", "torch_*.py"))
+    yield os.path.join(ROOT, "examples", "torch_quickstart.py")
     yield os.path.join(ROOT, "chip_smoke.py")
 
 
 def test_port_sources_name_no_jax_import():
     paths = list(_port_sources())
-    assert sum("benchmarks" in p for p in paths) >= 4
+    assert sum("benchmarks" in p for p in paths) >= 11
+    assert sum("examples" in p for p in paths) == 1
     for path in paths:
         text = open(path).read()
         for banned in ("import jax", "from jax", "import ml_dtypes",
