@@ -7,15 +7,20 @@ schedule, wave chunks on register columns) against the ``cuda-loop`` kernel
 groups) and the ``interpreter`` (one PyTorch op per gate) on fused MAC
 programs, reporting per mode the schedule shape the compiler produced —
 gates, peak columns after the ``reorder`` pass, dependency waves — next to
-the time per dispatch (``torch_common.time_fn``: CUDA events on the card,
-median of 3 after one warm-up).  This is the perf gate of
+the time per dispatch (``torch_common.time_fn``: CUDA events around each
+call on the card, median of ``ITERS`` after one warm-up; at 4096 elements
+one straight-line f32 MAC is 13 launches of a single block, and medians of
+3 calls spread from 0.36 to 0.97 ms across H100 runs, PERF.md).  This is the perf gate of
 ``benchmarks/torch_smoke.py``: the straight-line kernel must beat the loop
 kernel on the f32 fused MAC.  ``benchmarks/torch_run.py --json PATH`` writes
 the rows as JSON.
 
 The first ``cuda-unrolled`` dispatch of a schedule builds its kernel with
-``nvcc`` (seconds for the 13-segment f32 MAC); the warm-up takes it, and
-``us_per_call`` times the steady state.  ``--elems`` sets the elements per
+``nvcc`` (seconds for the 13-segment f32 MAC).  So every mode runs once,
+untimed, before any is timed, and no timed call follows seconds of an idle
+card: timed right after its build, the straight-line f32 MAC at 4096
+elements read 0.97 ms on an H100, against 0.57 – 0.63 ms with its kernel
+built beforehand (PERF.md).  ``us_per_call`` times the steady state.  ``--elems`` sets the elements per
 dispatch (default 4096, the reference's; the packed words are 1/32 of it).
 On the CPU (``--device cpu``) each mode runs its plain PyTorch version, so
 the times say nothing of the kernels.
@@ -36,6 +41,7 @@ from repro_torch.pim.frontend import resolve_device
 from .torch_common import bases_from_args, emit, make_parser, passes_from_args, time_fn
 
 N_ELEMS = 4096
+ITERS = 10
 
 _MODES = ("interpreter", "cuda-loop", "cuda-unrolled")
 
@@ -69,11 +75,13 @@ def run(bases: tuple[str, ...] = ("memristive",),
         planes = _planes(mac, dtype, rng, elems, device)
         for basis in bases:
             compiled = mac.compiled(basis=basis, passes=passes)
-            for mode in _MODES:
-                backend = ir.get_backend(mode)
+            backends = [ir.get_backend(mode) for mode in _MODES]
+            for backend in backends:  # builds and uploads, untimed
+                backend.run(compiled, planes)
+            for mode, backend in zip(_MODES, backends):
                 us = time_fn(
                     lambda backend=backend, c=compiled: backend.run(c, planes).planes,
-                    device=device, warmup=1, iters=3)
+                    device=device, warmup=1, iters=ITERS)
                 rows.append({
                     "name": f"exec/{name}/{basis}/{mode}",
                     "us_per_call": f"{us:.0f}",

@@ -27,8 +27,8 @@ import sys
 
 from repro_torch.core import ir
 
-from . import torch_exec_modes, torch_fig3_arith, torch_fig4_cc, torch_fig5_matmul
-from . import torch_fig_fused
+from . import (torch_exec_modes, torch_fig3_arith, torch_fig4_cc, torch_fig5_matmul,
+               torch_fig_fused)
 from .torch_common import emit
 from .torch_run import EXEC_JSON, write_exec_json
 
@@ -59,13 +59,19 @@ def check(name: str, rows: list[dict]) -> None:
     print(f"smoke: {name} ok ({len(rows)} rows)", file=sys.stderr)
 
 
-def check_exec(rows: list[dict]) -> None:
-    """The straight-line kernel must beat the loop kernel on the f32 MAC."""
+def f32_mac_times(rows: list[dict]) -> tuple[float, float]:
+    """(loop, straight-line) µs per call of the f32 MAC, memristive."""
     us = {r["name"]: float(r["us_per_call"]) for r in rows}
     loop = us.get("exec/f32_mac/memristive/cuda-loop")
     unrolled = us.get("exec/f32_mac/memristive/cuda-unrolled")
     if loop is None or unrolled is None:
         raise SystemExit("smoke: exec_modes is missing the f32 MAC rows")
+    return loop, unrolled
+
+
+def check_exec(rows: list[dict]) -> None:
+    """The straight-line kernel must beat the loop kernel on the f32 MAC."""
+    loop, unrolled = f32_mac_times(rows)
     if unrolled >= loop:
         raise SystemExit(
             f"smoke: cuda-unrolled ({unrolled:.0f}us) is not faster than "

@@ -30,7 +30,7 @@ the host clock and to enqueue, the profiler's device-busy time, the share
 of the fp32 peak and peak memory.  It prints the Fig 4 rows, runs
 ``examples/torch_quickstart.py`` on the card (its f32 MAC on the loop
 kernel, its analyzer verdicts against the H100) and the Fig 8 verdict of
-each measured CNN step, and runs ``benchmarks/torch_smoke.main()`` at 4096
+each measured CNN step.  It runs ``benchmarks/torch_smoke.main()`` at 4096
 elements and at 2^24, each with its gate (the straight-line kernel faster
 than the loop kernel on the f32 MAC), writing
 ``build/BENCH_exec_torch_*.json``.  It prints one JSON line of kernels,
@@ -339,24 +339,33 @@ def cnn_logits_check(dev: torch.device) -> None:
         del model, ref_model, card
 
 
-def device_busy_ms(step, reps: int) -> float:
-    """Device time of ``reps`` calls of ``step`` summed over the kernels
-    ``torch.profiler`` saw, per call (0.0 if it saw no device time)."""
+def device_busy(step, reps: int) -> tuple[float, list[tuple[str, float]]]:
+    """Device time of ``reps`` calls of ``step`` per call — the sum over the
+    device-side events (kernels, copies, sets) ``torch.profiler`` saw, not
+    over the host ops that launched them (0.0 if it saw none) — and the
+    three device events that took most of it (name, ms per call)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3 / reps
+    events = sorted(((e.key, e.self_device_time_total / 1e3 / reps)
+                     for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                    key=lambda kv: -kv[1])
+    return sum(ms for _, ms in events), events[:3]
 
 
 def cnn_phase(dev: torch.device, smi: str) -> dict:
     """Fig 6 and Fig 7 on the card at batch 8, 224×224, float32, then per
     model and mode: CUDA-event and host-clock time per step, the host's
-    enqueue time, the profiler's device-busy time, FLOP/s as a share of the
-    H100's fp32 peak, and peak device memory.  Returns the measured steps
-    (name, train) -> (flops, bytes, event ms)."""
+    enqueue time, the CUDA-event time with cuDNN's autotuner on, the
+    profiler's device-busy time and its three largest device events, FLOP/s
+    as a share of the H100's fp32 peak, and the step's peak device memory
+    (model, input, activations, gradients and cuDNN workspace, above what
+    was allocated before it).  Returns the measured steps: (name, train) ->
+    (flops, bytes, event ms)."""
     cnn_logits_check(dev)
     rows = torch_fig6_cnn_infer.run(device=dev) + torch_fig7_cnn_train.run(device=dev)
     want = [f"{tag}/{n}" for tag in ("fig6", "fig7") for n in torch_fig6_cnn_infer.NAMES]
@@ -370,6 +379,7 @@ def cnn_phase(dev: torch.device, smi: str) -> dict:
         for name in torch_fig6_cnn_infer.NAMES:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()  # the earlier phases' tensors
             step = torch_fig6_cnn_infer.make_step(name, train, dev)
             flops, bytes_ = cnn.step_cost(name, torch_fig6_cnn_infer.BATCH, 224, train)
             with torch_fig6_cnn_infer.full_precision():
@@ -380,19 +390,24 @@ def cnn_phase(dev: torch.device, smi: str) -> dict:
                 enqueue_ms = (time.perf_counter() - t0) * 1e3 / CNN_STEP_REPS
                 torch.cuda.synchronize()
                 host_ms = (time.perf_counter() - t0) * 1e3 / CNN_STEP_REPS
-                busy_ms = device_busy_ms(step, 3)
-            peak = torch.cuda.max_memory_allocated()
+                busy_ms, top = device_busy(step, 3)
+                peak = torch.cuda.max_memory_allocated() - held
+                torch.backends.cudnn.benchmark = True  # autotuned in cuda_ms's warm-up
+                tuned_ms = cuda_ms(step, CNN_STEP_REPS)
+                torch.backends.cudnn.benchmark = False
             bound = max(flops / H100.peak_fp32, bytes_ / H100.mem_bw) * 1e3
             mode = "train" if train else "infer"
-            busy = (f"{busy_ms:.4f} ms ({busy_ms / host_ms:.1%} of the host-clock step)"
+            busy = (f"{busy_ms:.4f} ms ({busy_ms / host_ms:.1%} of the host-clock step), "
+                    "most in " + "; ".join(f"{k[:60]} {ms:.4f} ms" for k, ms in top)
                     if busy_ms > 0 else "not measured (the profiler saw no device time)")
             say(f"cnn: {name} {mode} batch {torch_fig6_cnn_infer.BATCH}: "
                 f"{event_ms:.4f} ms/step by CUDA events (mean of {CNN_STEP_REPS} back to "
-                f"back), {host_ms:.4f} ms by the host clock, {enqueue_ms:.4f} ms to enqueue; "
+                f"back), {host_ms:.4f} ms by the host clock, {enqueue_ms:.4f} ms to enqueue, "
+                f"{tuned_ms:.4f} ms by CUDA events with cudnn.benchmark on; "
                 f"device busy {busy}; {flops / (event_ms * 1e-3) / 1e12:.2f} TFLOP/s = "
                 f"{flops / (event_ms * 1e-3) / H100.peak_fp32:.1%} of the fp32 peak "
                 f"{H100.peak_fp32 / 1e12:.0f} TFLOP/s ({smi}); fp32 roofline {bound:.4f} ms; "
-                f"peak memory {peak / 2**20:.1f} MiB")
+                f"peak memory {peak / 2**20:.1f} MiB above the {held / 2**20:.1f} MiB held before")
             measured[(name, train)] = (flops, bytes_, event_ms)
             del step
     return measured
@@ -422,29 +437,28 @@ def fig4_fig8_phase(dev: torch.device, measured: dict) -> None:
             f"measured fp32 step {ms:.4f} ms")
 
 
-def exec_phase() -> dict:
-    """``torch_smoke.main()`` on the card at 4096 elements and at 2^24, each
-    with its exec gate (the straight-line kernel faster than the loop kernel
-    on the f32 MAC); returns each run's launches by kernel."""
-    launches = {}
+def exec_phase() -> None:
+    """``torch_smoke.main()`` at 4096 elements (the reference's size: a
+    single block, where both kernels are latency-bound) and at 2^24, the
+    main path's size, each with its gate: the straight-line kernel faster
+    than the loop kernel on the f32 MAC."""
     for elems, path in EXEC_JSON.items():
         pim_bitserial.reset_launches()
         pim_matmul.reset_launches()
         torch_smoke.main(["--elems", str(elems), "--json", path])
         torch.cuda.synchronize()
-        launches[elems] = {**pim_bitserial.LAUNCHES,
-                           **{f"pim_matmul/{k}": v for k, v in pim_matmul.LAUNCHES.items() if v}}
+        launches = {**pim_bitserial.LAUNCHES,
+                    **{f"pim_matmul/{k}": v for k, v in pim_matmul.LAUNCHES.items() if v}}
         for kernel in ("bitserial_loop", "bitserial_unrolled", "pim_matmul/f32_simt128"):
-            require(launches[elems].get(kernel, 0) > 0,
-                    f"smoke at {elems} elements never launched {kernel}")
+            require(launches.get(kernel, 0) > 0,
+                    f"torch_smoke at {elems} elements never launched {kernel}")
         with open(path) as f:
             record = json.load(f)
         require(record["elems"] == elems and len(record["rows"]) == 6, f"{path}: {record}")
-        us = {r["name"].rsplit("/", 1)[1]: r["us_per_call"] for r in record["rows"]
-              if r["name"].startswith("exec/f32_mac/")}
-        say(f"exec: {elems} elements, f32 MAC memristive, us per call {us}; "
-            f"launches in the smoke run {launches[elems]}; rows in {os.path.relpath(path, ROOT)}")
-    return launches
+        loop, unrolled = torch_smoke.f32_mac_times(record["rows"])
+        say(f"exec: {elems} elements: the gate holds, straight-line {unrolled:.0f} us vs "
+            f"loop {loop:.0f} us per f32 MAC; launches {launches}; rows in "
+            f"{os.path.relpath(path, ROOT)}")
 
 
 def main() -> int:

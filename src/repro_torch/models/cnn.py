@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import torch
 import torch.nn as nn
@@ -318,24 +319,17 @@ class Layer:
     weight_shape: tuple[int, ...]  # () for a pool
     out_shape: tuple[int, ...]
 
-    @staticmethod
-    def _elems(shape) -> int:
-        n = 1
-        for d in shape:
-            n *= d
-        return n
-
     @property
     def in_elems(self) -> int:
-        return self._elems(self.in_shape)
+        return math.prod(self.in_shape)
 
     @property
     def weight_elems(self) -> int:
-        return self._elems(self.weight_shape) if self.weight_shape else 0
+        return math.prod(self.weight_shape) if self.weight_shape else 0
 
     @property
     def out_elems(self) -> int:
-        return self._elems(self.out_shape)
+        return math.prod(self.out_shape)
 
 
 def _run_counted(name: str, batch: int, img, train: bool) -> tuple[list[Layer], float]:
