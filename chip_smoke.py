@@ -43,6 +43,7 @@ JAX.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import importlib.util
 import json
 import os
@@ -60,10 +61,13 @@ sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
 import repro_torch.pim as pim  # noqa: E402
 from benchmarks import (torch_fig4_cc, torch_fig5_matmul, torch_fig6_cnn_infer,  # noqa: E402
                         torch_fig7_cnn_train, torch_smoke)
+from repro_torch.configs import ARCHS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.analyzer import Workload, analyze  # noqa: E402
 from repro_torch.core.costmodel import H100  # noqa: E402
 from repro_torch.kernels import _build, ops, pim_bitserial, pim_matmul  # noqa: E402
+from repro_torch.launch.serve import ServeEngine  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
+from repro_torch.models import transformer as lm  # noqa: E402
 
 N = 1 << 24
 SEED = 0
@@ -89,6 +93,19 @@ CNN_TOL = 1e-4
 CNN_CHECK_BATCH = 2
 CNN_STEP_REPS = 10
 EXEC_JSON = {n: os.path.join(ROOT, "build", f"BENCH_exec_torch_{n}.json") for n in (4096, N)}
+# The LM serving phase.  Card against CPU in float32: logits within
+# SERVE_TOL x max|logit| at every step, greedy tokens equal.
+SERVE_TOL = 1e-4
+SERVE_SMOKE = (2, 12, 4)  # batch, prompt tokens, greedy decode steps: each smoke arch
+SERVE_UNIT = (1, 8, 2)  # the same for gemma2-27b at full width, depth 2
+SERVE_SET_A = (4, 512, 32)  # batch, prompt tokens, generated tokens: gemma2-27b served
+SERVE_SET_B = (1, 4352, 8)  # a prompt past the 4096 window: the local rings wrap
+SERVE_TEMPERATURE = 0.8
+# bf16 decode parity (prefill P-1 plus one decode step against prefill P at
+# the last position): max|delta| over max|logit|, the bound PERF.md states.
+SERVE_PARITY_TOL = 0.05
+SERVE_PREFILL_REPS = 3
+SERVE_BUSY_REPS = 3
 
 F32_SPECIALS = np.array(
     [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45, 1.1754942e-38,
@@ -461,6 +478,263 @@ def exec_phase() -> None:
             f"{os.path.relpath(path, ROOT)}")
 
 
+def f32_config(cfg):
+    return dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+
+
+def greedy(model, cfg, tokens, cross, steps: int, device) -> tuple[list, torch.Tensor]:
+    """Prefill ``tokens`` then ``steps`` greedy decode steps on ``device``:
+    each step's logits (float64, on the CPU) and the greedy tokens."""
+    B, P = tokens.shape
+    caches = lm.init_caches(cfg, B, P + steps, device)
+    cross = None if cross is None else cross.to(device)
+    logits, caches = lm.prefill(model, tokens.to(device), cfg, caches, cross_embeds=cross)
+    out, picked = [logits.double().cpu()], []
+    for i in range(steps):
+        tok = logits.argmax(dim=-1, keepdim=True)
+        picked.append(tok.cpu())
+        logits, caches = lm.decode_step(model, tok, P + i, cfg, caches, cross_embeds=cross)
+        out.append(logits.double().cpu())
+    return out, torch.cat(picked, dim=1)
+
+
+def card_matches_cpu(label: str, cfg, model_cpu, model_card, shape, dev, seed: int) -> None:
+    """The same prompts (and VLM patch embeddings) through the CPU model and
+    the card's: every step's float32 logits within ``SERVE_TOL`` of the
+    largest, greedy tokens equal."""
+    B, P, steps = shape
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (B, P), generator=gen)
+    cross = (torch.randn((B, cfg.cross_kv_len, cfg.d_model), generator=gen)
+             if cfg.family == "vlm" else None)
+    t0 = time.perf_counter()
+    want, want_tok = greedy(model_cpu, cfg, tokens, cross, steps, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, got_tok = greedy(model_card, cfg, tokens, cross, steps, dev)
+    card_s = time.perf_counter() - t0
+    require(all(bool(torch.isfinite(g).all()) for g in got), f"serve {label}: non-finite logits")
+    errs = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+    require(max(errs) <= SERVE_TOL, f"serve {label}: card logits off the CPU's by {errs}")
+    require(torch.equal(got_tok, want_tok),
+            f"serve {label}: greedy tokens {got_tok.tolist()} on the card, {want_tok.tolist()} "
+            f"on the CPU")
+    say(f"serve: {label} ({cfg.family}, {cfg.n_layers} layers {'/'.join(cfg.unit)}, d "
+        f"{cfg.d_model}): prefill {P} tokens at batch {B} + {steps} greedy steps in float32: "
+        f"card within {max(errs):.3g} x max|logit| of the CPU at every step (bound {SERVE_TOL}),"
+        f" greedy tokens equal {got_tok[0].tolist()}; {cpu_s:.1f} s CPU, {card_s:.1f} s card")
+
+
+def timed(fn) -> tuple[float, float, float, object]:
+    """(CUDA-event ms, host-clock ms to the end of the work, host ms to
+    enqueue it, result) of one call of ``fn``."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    result = fn()
+    end.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    return start.elapsed_time(end), host_ms, enqueue_ms, result
+
+
+def attn_layers(cfg, S: int) -> list[int]:
+    """The cache length of every attention layer at ``S`` positions."""
+    return [min(S, cfg.window) if k == "local" else S
+            for k in cfg.layer_kinds() if k in ("global", "local", "moe")]
+
+
+def decode_bytes(cfg, B: int, P: int, steps: int) -> tuple[float, float]:
+    """Bytes a decode step must read, averaged over ``steps`` steps from
+    position ``P``: every bf16 weight once (the tied embedding is the
+    output projection) and the k/v of the filled cache slots."""
+    weights = 2.0 * cfg.param_count()
+    per_token = 2 * B * cfg.n_kv_heads * cfg.hd * 2  # k and v, bf16
+    kv = sum(min(P + i + 1, S_c) * per_token for i in range(steps)
+             for S_c in attn_layers(cfg, P + steps)) / steps
+    return weights, kv
+
+
+def prefill_flops(cfg, B: int, T: int) -> tuple[float, float]:
+    """(2·N·tokens, the FLOPs this prefill needs): every matrix product at
+    2 FLOPs a MAC, the output projection on the last position only, and
+    attention over each query's causal (windowed) keys."""
+    n, vd = cfg.param_count(), cfg.vocab * cfg.d_model
+    work = 2.0 * (n - vd) * B * T + 2.0 * vd * B
+    H, hd = cfg.n_heads, cfg.hd
+    for S_c, kind in zip(attn_layers(cfg, T),
+                         [k for k in cfg.layer_kinds() if k in ("global", "local", "moe")]):
+        window = cfg.window if kind == "local" else T
+        keys = sum(min(q + 1, window) for q in range(T))
+        work += 2 * 2 * B * H * hd * keys  # scores and the weighted sum
+    return 2.0 * n * B * T, work
+
+
+def serve_requests(engine, label: str, shape, dev, smi: str) -> dict:
+    """One request set on the served model: greedy generate twice (equal
+    tokens, prompts echoed), at temperature 0.8 once (set A), prefill and
+    decode timed by CUDA events and the host clock beside their bounds, the
+    device-busy share of a decode step, decode parity and peak memory."""
+    B, P, G = shape
+    cfg = engine.cfg
+    eng = dataclasses.replace(engine, max_seq=P + G)
+    prompts = np.random.default_rng(SEED + ord(label)).integers(0, cfg.vocab, (B, P)).astype(
+        np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = eng.generate(prompts, G, temperature=0.0)
+    generate_s = time.perf_counter() - t0
+    again = eng.generate(prompts, G, temperature=0.0)
+    peak = torch.cuda.max_memory_allocated()
+    require(out.shape == (B, P + G) and np.array_equal(out, again),
+            f"serve set {label}: two greedy runs differ")
+    require(np.array_equal(out[:, :P], prompts), f"serve set {label}: prompts not echoed")
+    require(0 <= out.min() and out.max() < cfg.vocab, f"serve set {label}: token out of range")
+    say(f"serve: set {label} (batch {B}, prompt {P}, gen {G}): two greedy runs token-equal, "
+        f"prompts echoed; generate {generate_s:.3f} s by the host clock "
+        f"({B * G / generate_s:.1f} tok/s end to end); first row {out[0, P:].tolist()}")
+    if label == "A":
+        sampled = eng.generate(prompts, G, temperature=SERVE_TEMPERATURE, seed=SEED)
+        require(np.array_equal(sampled[:, :P], prompts) and sampled.max() < cfg.vocab
+                and sampled.min() >= 0, f"serve set {label}: sampled tokens")
+        say(f"serve: set {label} at temperature {SERVE_TEMPERATURE}: first row "
+            f"{sampled[0, P:].tolist()}")
+
+    tokens = torch.from_numpy(prompts).long().to(dev)
+    prefill = []
+    for _ in range(SERVE_PREFILL_REPS):
+        caches = lm.init_caches(cfg, B, eng.max_seq, dev)
+        ev, host, enq, (logits, caches) = timed(
+            lambda: eng.prefill_fn(eng.params, tokens, caches))  # noqa: B023
+        prefill.append((ev, host, enq))
+    require(bool(torch.isfinite(logits.float()).all()), f"serve set {label}: prefill logits")
+
+    def decode_loop():
+        lg = logits
+        for i in range(G - 1):
+            lg, _ = eng.decode_fn(eng.params, lg.argmax(dim=-1, keepdim=True), P + i, caches)
+        return lg
+
+    dec_ev, dec_host, dec_enq, last = timed(decode_loop)
+    require(bool(torch.isfinite(last.float()).all()), f"serve set {label}: decode logits")
+    steps = G - 1
+    tok = last.argmax(dim=-1, keepdim=True)
+    busy_ms, top = device_busy(
+        lambda: eng.decode_fn(eng.params, tok, P + G - 1, caches), SERVE_BUSY_REPS)
+    del caches, logits, last
+
+    # decode parity: prefill P-1 plus one decode step against prefill P
+    want, _ = eng.prefill_fn(eng.params, tokens, lm.init_caches(cfg, B, P, dev))
+    _, caches = eng.prefill_fn(eng.params, tokens[:, :-1], lm.init_caches(cfg, B, P, dev))
+    got, _ = eng.decode_fn(eng.params, tokens[:, -1:], P - 1, caches)
+    parity = float((got.float() - want.float()).abs().max() / want.float().abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    require(bool(torch.isfinite(got.float()).all()), f"serve set {label}: parity logits")
+    require(parity <= SERVE_PARITY_TOL,
+            f"serve set {label}: decode parity {parity:.4g} > {SERVE_PARITY_TOL}")
+    del caches, got, want
+
+    model_flops, work = prefill_flops(cfg, B, P)
+    weights, kv = decode_bytes(cfg, B, P, steps)
+    pre_ms = [r[0] for r in prefill]
+    pre_bound = max(work / BF16_TENSOR_FLOPS, weights / HBM_BYTES_PER_S) * 1e3
+    dec_ms = dec_ev / steps
+    dec_bound = (weights + kv) / HBM_BYTES_PER_S * 1e3
+    say(f"serve: set {label} prefill ({B}x{P} tokens): {', '.join(f'{m:.2f}' for m in pre_ms)} "
+        f"ms by CUDA events ({SERVE_PREFILL_REPS} runs), host clock "
+        f"{', '.join(f'{r[1]:.2f}' for r in prefill)} ms, enqueue "
+        f"{', '.join(f'{r[2]:.2f}' for r in prefill)} ms; bound {pre_bound:.2f} ms (this run's "
+        f"{work / 1e12:.1f} TFLOP at the bf16 peak 989 TFLOP/s; 2·N·tokens "
+        f"{model_flops / BF16_TENSOR_FLOPS * 1e3:.2f} ms) -> {pre_bound / pre_ms[-1]:.1%} of "
+        f"the bound ({smi})")
+    busy = (f"{busy_ms:.4f} ms a step ({busy_ms / (dec_host / steps):.1%} of the host-clock "
+            "step), most in " + "; ".join(f"{k[:60]} {ms:.4f} ms" for k, ms in top)
+            if busy_ms > 0 else "not measured (the profiler saw no device time)")
+    say(f"serve: set {label} decode: {dec_ms:.4f} ms/step by CUDA events over {steps} steps, "
+        f"{dec_host / steps:.4f} ms by the host clock, {dec_enq / steps:.4f} ms to enqueue; "
+        f"{B / (dec_ms * 1e-3):.1f} tok/s; bound {dec_bound:.4f} ms ({weights / 1e9:.2f} GB "
+        f"of weights + {kv / 1e9:.3f} GB of k/v a step at 3.35 TB/s) -> {dec_bound / dec_ms:.1%}"
+        f" of the bound; device busy {busy} ({smi})")
+    say(f"serve: set {label} decode parity (prefill {P - 1} + one decode step against prefill "
+        f"{P}): {parity:.4g} x max|logit| (bound {SERVE_PARITY_TOL}), argmax equal in "
+        f"{agree:.0%} of rows; peak memory {peak / 2**30:.2f} GiB")
+    v = analyze(Workload(f"{cfg.name} decode bs={B} (set {label})",
+                         flops=2.0 * cfg.param_count() * B, hbm_bytes=weights + kv))
+    say(f"fig8: {v.workload}: reuse {v.reuse:.1f} FLOP/B, {v.quadrant}, modeled PIM "
+        f"{v.pim_time_s * 1e3:.4f} ms vs modeled H100 {v.gpu_time_s * 1e3:.4f} ms -> PIM "
+        f"{'wins' if v.pim_wins else 'loses'}; measured H100 decode step {dec_ms:.4f} ms")
+    return {"prefill_ms": pre_ms, "prefill_host_ms": [r[1] for r in prefill],
+            "prefill_bound_ms": pre_bound, "decode_ms": dec_ms,
+            "decode_host_ms": dec_host / steps, "decode_enqueue_ms": dec_enq / steps,
+            "decode_bound_ms": dec_bound, "decode_busy_ms": busy_ms,
+            "tok_per_s": B / (dec_ms * 1e-3), "generate_s": generate_s, "parity": parity,
+            "peak_gib": peak / 2**30}
+
+
+def serve_phase(dev: torch.device, smi: str, full=None, sets=(("A", SERVE_SET_A),
+                                                             ("B", SERVE_SET_B))) -> None:
+    """The LM serving path: every smoke arch in float32 and gemma2-27b at
+    full width and depth 2 on the card against the CPU, then gemma2-27b
+    (``full``) served at full width and depth in bf16 on request sets A and
+    B.  No kernel of the port runs here (cuBLAS and PyTorch's own kernels):
+    the counts must stay 0."""
+    pim_bitserial.reset_launches()
+    pim_matmul.reset_launches()
+    for i, arch in enumerate(ARCHS):
+        cfg = f32_config(get_smoke_config(arch))
+        model_cpu = lm.init_params(cfg, SEED, "cpu")
+        card_matches_cpu(arch, cfg, model_cpu, copy.deepcopy(model_cpu).to(dev), SERVE_SMOKE,
+                         dev, SEED + i)
+    full = full or get_config("gemma2_27b")
+    cfg = dataclasses.replace(f32_config(full), n_layers=2)
+    model_card = lm.init_params(cfg, SEED, dev)
+    model_cpu = lm.init_params(cfg, SEED, "meta")
+    model_cpu.load_state_dict({k: v.cpu() for k, v in model_card.state_dict().items()},
+                              assign=True)
+    say(f"serve: {cfg.name} at full width, depth 2: {cfg.param_count()} parameters in float32")
+    card_matches_cpu(f"{cfg.name} depth 2", cfg, model_cpu, model_card, SERVE_UNIT, dev, SEED)
+    del model_card, model_cpu
+
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    # Full float32 sums in every bf16 product, as XLA's bf16 dots keep them:
+    # cuBLAS may otherwise reduce split-K partial sums in bf16.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    t0 = time.perf_counter()
+    engine = ServeEngine.build(full, max_seq=max(P + G for _, (_, P, G) in sets), seed=SEED,
+                               device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n = engine.cfg.param_count()
+    weight_bytes = sum(p.numel() * p.element_size() for p in engine.params.parameters())
+    require(weight_bytes == 2 * n, f"serve: {weight_bytes} bytes of weights for {n} parameters")
+    say(f"serve: {full.name} at full width and depth ({full.n_layers} layers, serve_config: "
+        f"bf16 weights and compute) built on the card from seed {SEED} in {build_s:.1f} s: {n} "
+        f"parameters, {weight_bytes / 2**30:.2f} GiB; {torch.cuda.memory_allocated() / 2**30:.2f}"
+        f" GiB allocated, {held / 2**30:.2f} GiB of it held by earlier phases; "
+        f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f} GiB on the card")
+    results = {label: serve_requests(engine, label, shape, dev, smi) for label, shape in sets}
+    del engine
+    torch.cuda.empty_cache()
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_serve_decode", os.path.join(ROOT, "examples", "torch_serve_decode.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    out, verdict = example.main(["--device", str(dev)])
+    require(out.shape == (4, 40), f"examples/torch_serve_decode.py: {out.shape}")
+    torch.cuda.synchronize()
+    launches = {**pim_bitserial.LAUNCHES,
+                **{f"pim_matmul/{k}": v for k, v in pim_matmul.LAUNCHES.items()}}
+    say(f"serve: the port's kernel launches in the serve phase {launches}")
+    require(not any(launches.values()), "the serve phase launched a kernel of the port")
+    say(f"serve: summary {json.dumps(results)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -608,6 +882,9 @@ def main() -> int:
     t0 = time.perf_counter()
     exec_phase()
     say(f"exec: phase took {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    serve_phase(dev, smi)
+    say(f"serve: phase took {time.perf_counter() - t0:.1f} s wall")
 
     sources = {  # name: (source, TPU kernel, library, kernel symbol, reported case)
         "bitserial_loop": ("src/repro_torch/kernels/csrc/bitserial_loop.cu",

@@ -6,7 +6,10 @@ runs through the port's executors unchanged (separating compiler faults
 from executor faults).  ``planes_from_numpy``/``planes_to_numpy`` convert
 uint32 bit-planes to and from the port's int32 carrier, bit for bit.
 ``cnn_state_dict`` turns a reference CNN's parameter tree into the port
-model's ``state_dict``.
+model's ``state_dict``; ``lm_params`` and ``lm_caches`` do the same for the
+LM substrate's parameters and serving caches, unstacking the reference's
+``units`` (stacked over repeats of the layer pattern) plus ``tail`` into
+the port's flat per-layer order.
 """
 
 from __future__ import annotations
@@ -96,4 +99,87 @@ def cnn_state_dict(name: str, params) -> dict[str, torch.Tensor]:
     if got != want:
         diff = sorted(set(got.items()) ^ set(want.items()))
         raise ValueError(f"{name}: parameters do not match the model: {diff[:6]}")
+    return out
+
+
+def _leaves(node, path=()):
+    """(dotted path, leaf) of a nested dict tree, in insertion order."""
+    if isinstance(node, dict):
+        for key, child in node.items():
+            yield from _leaves(child, (*path, str(key)))
+    else:
+        yield ".".join(path), node
+
+
+def _as_numpy(leaf) -> np.ndarray:
+    """A leaf as a numpy array; a 16-bit float type numpy has no name for
+    (bfloat16) crosses as float32, which holds it exactly."""
+    arr = np.asarray(leaf)
+    return arr if arr.dtype.kind in "biuf" else arr.astype(np.float32)
+
+
+def _per_layer(tree: dict, cfg) -> list[dict]:
+    """The reference's ``{"units": [...], "tail": [...]}`` as one flat dict
+    of numpy leaves per layer: ``units[pos]`` leaf ``[i]`` is layer
+    ``i·len(unit) + pos``, then the tail's layers."""
+    U, n = len(cfg.unit), cfg.n_units
+    units, tail = tree["units"], tree["tail"]
+    if len(units) != U or len(tail) != len(cfg.tail):
+        raise ValueError(f"{cfg.name}: {len(units)} unit entries and {len(tail)} tail "
+                         f"entries, the config has {U} and {len(cfg.tail)}")
+    layers: list[dict] = [{} for _ in range(n * U)]
+    for pos, stacked in enumerate(units):
+        for name, leaf in _leaves(stacked):
+            arr = _as_numpy(leaf)
+            if arr.shape[:1] != (n,):
+                raise ValueError(f"{cfg.name}: units[{pos}].{name} has shape {arr.shape}, "
+                                 f"expected {n} stacked repeats")
+            for i in range(n):
+                layers[i * U + pos][name] = arr[i]
+    layers += [{name: _as_numpy(leaf) for name, leaf in _leaves(t)} for t in tail]
+    return layers
+
+
+def _to_torch(got: dict, want: dict[str, torch.Tensor], what: str) -> dict:
+    """``got`` (name → numpy array) as tensors in the dtypes of ``want``
+    (name → meta tensor), on the CPU; ``ValueError`` unless keys and shapes
+    match exactly."""
+    got_shapes = {k: tuple(v.shape) for k, v in got.items()}
+    want_shapes = {k: tuple(v.shape) for k, v in want.items()}
+    if got_shapes != want_shapes:
+        diff = sorted(set(got_shapes.items()) ^ set(want_shapes.items()))
+        raise ValueError(f"{what} do not match the port's: {diff[:6]}")
+    return {k: torch.from_numpy(np.array(v)).to(want[k].dtype) for k, v in got.items()}
+
+
+def lm_params(params: dict, cfg) -> dict[str, torch.Tensor]:
+    """The reference LM parameter tree ``params`` (nested dicts and lists of
+    numpy arrays, as ``repro.models.transformer.init_params`` makes them;
+    bf16 leaves may come as float32) as the ``state_dict`` of
+    ``repro_torch.models.transformer.Transformer(cfg)``, in the port's
+    dtypes on the CPU.  Raises ``ValueError`` unless every key and shape is
+    exactly the model's."""
+    from repro_torch.models import transformer
+
+    flat = {f"embed.{k}": _as_numpy(v) for k, v in _leaves(params["embed"])}
+    flat["final_norm"] = _as_numpy(params["final_norm"])
+    for i, layer in enumerate(_per_layer(params, cfg)):
+        flat.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    want = transformer.Transformer(cfg, device="meta").state_dict()
+    return _to_torch(flat, want, f"{cfg.name}: parameters")
+
+
+def lm_caches(caches: dict, cfg, batch: int, seq_len: int, device="cpu") -> list[dict]:
+    """The reference's serving caches (``repro.models.transformer.init_caches``
+    layout, numpy leaves) as the port's per-layer list, in the port's cache
+    dtypes on ``device`` — to compare cache contents, or to decode from a
+    cache the reference filled.  Raises ``ValueError`` unless every entry's
+    keys and shapes are those of ``init_caches(cfg, batch, seq_len)``."""
+    from repro_torch.models import transformer
+
+    want = transformer.init_caches(cfg, batch, seq_len, device="meta")
+    out = []
+    for i, (got, ref) in enumerate(zip(_per_layer(caches, cfg), want, strict=True)):
+        out.append({k: v.to(device) for k, v in _to_torch(
+            got, ref, f"{cfg.name}: cache of layer {i}").items()})
     return out

@@ -205,3 +205,48 @@ def test_cnn_logits_on_card_match_float64(cuda, name, batch, img, train):
         got = model.to(cuda)(x.to(cuda)).double().cpu()
     assert got.shape == want.shape == (batch, 1000)
     assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("arch", ["gemma2_27b", "recurrentgemma_9b", "deepseek_moe_16b"])
+def test_serve_on_card_matches_cpu(cuda, arch):
+    """A smoke LM in float32 (TF32 off): prefill 12 tokens at batch 2 and 4
+    greedy decode steps on the card against the same weights on the CPU,
+    logits within 1e-4 of the largest, greedy tokens equal; then the serving
+    engine on its default device (the card) generates the same tokens
+    twice."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models import transformer as lm
+
+    from benchmarks.torch_fig6_cnn_infer import full_precision
+
+    cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32",
+                              compute_dtype="float32")
+    model = lm.init_params(cfg, 0, "cpu")
+    card = copy.deepcopy(model).to(cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 12), generator=torch.Generator().manual_seed(3))
+    runs = []
+    with full_precision():
+        for m, dev in ((model, torch.device("cpu")), (card, cuda)):
+            caches = lm.init_caches(cfg, 2, 16, dev)
+            logits, caches = lm.prefill(m, tokens.to(dev), cfg, caches)
+            steps, picked = [logits.double().cpu()], []
+            for i in range(4):
+                tok = logits.argmax(dim=-1, keepdim=True)
+                picked.append(tok.cpu())
+                logits, caches = lm.decode_step(m, tok, 12 + i, cfg, caches)
+                steps.append(logits.double().cpu())
+            runs.append((steps, torch.cat(picked, dim=1)))
+    (want, want_tok), (got, got_tok) = runs
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
+    assert torch.equal(got_tok, want_tok)
+    engine = ServeEngine.build(cfg, 20)
+    assert engine.device.type == "cuda"
+    prompts = tokens.numpy().astype(np.int32)
+    a = engine.generate(prompts, 8, temperature=0.0)
+    assert np.array_equal(a, engine.generate(prompts, 8, temperature=0.0))
+    assert np.array_equal(a[:, :12], prompts)

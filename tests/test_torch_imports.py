@@ -1,5 +1,7 @@
-"""The port stands alone: importing ``repro_torch`` and every submodule, the
-port's benchmarks ``benchmarks/torch_*.py``, ``examples/torch_quickstart.py``
+"""The port stands alone: importing ``repro_torch`` and every submodule
+(the LM substrate's ``configs``, ``models.{layers,attention,moe,ssm,rglru,
+transformer}`` and ``launch.{steps,serve}`` among them), the port's
+benchmarks ``benchmarks/torch_*.py``, the examples ``examples/torch_*.py``
 or ``chip_smoke.py`` loads neither JAX, ml_dtypes nor the reference
 package."""
 
@@ -22,11 +24,11 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 import importlib.util
-spec = importlib.util.spec_from_file_location(
-    "torch_quickstart", os.path.join({root!r}, "examples", "torch_quickstart.py"))
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for path in sorted(glob.glob(os.path.join({root!r}, "examples", "torch_*.py"))):
+    spec = importlib.util.spec_from_file_location(os.path.basename(path)[:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "repro"))
-print(len(names), bad)
+print(len(names), bad, names)
 assert not bad, bad
 """
 
@@ -39,7 +41,11 @@ def test_port_imports_no_jax_and_no_reference():
                           text=True, timeout=120, env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 33  # 22 modules of repro_torch, 11 benchmarks
+    assert n_modules >= 55  # 44 modules of repro_torch, 11 benchmarks
+    for name in ("configs", "configs.gemma2_27b", "models.layers", "models.attention",
+                 "models.moe", "models.ssm", "models.rglru", "models.transformer",
+                 "launch.steps", "launch.serve"):
+        assert f"repro_torch.{name}" in proc.stdout, name
 
 
 def _port_sources():
@@ -47,14 +53,14 @@ def _port_sources():
     for dirpath, _, files in os.walk(src):
         yield from (os.path.join(dirpath, f) for f in files if f.endswith(".py"))
     yield from glob.glob(os.path.join(ROOT, "benchmarks", "torch_*.py"))
-    yield os.path.join(ROOT, "examples", "torch_quickstart.py")
+    yield from glob.glob(os.path.join(ROOT, "examples", "torch_*.py"))
     yield os.path.join(ROOT, "chip_smoke.py")
 
 
 def test_port_sources_name_no_jax_import():
     paths = list(_port_sources())
     assert sum("benchmarks" in p for p in paths) >= 11
-    assert sum("examples" in p for p in paths) == 1
+    assert sum("examples" in p for p in paths) == 2
     for path in paths:
         text = open(path).read()
         for banned in ("import jax", "from jax", "import ml_dtypes",
