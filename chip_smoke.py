@@ -33,9 +33,21 @@ kernel, its analyzer verdicts against the H100) and the Fig 8 verdict of
 each measured CNN step.  It runs ``benchmarks/torch_smoke.main()`` at 4096
 elements and at 2^24, each with its gate (the straight-line kernel faster
 than the loop kernel on the f32 MAC), writing
-``build/BENCH_exec_torch_*.json``.  It prints one JSON line of kernels,
-with the registers and stack frame of each read from the built library,
-and, last, ``{"ok": true, "device": {...}}``.  Any failed check raises;
+``build/BENCH_exec_torch_*.json``.  The LM serving phase follows, with
+every kernel count set to 0 before it (it must launch none of the port's
+kernels): each arch's smoke config in float32, and gemma2-27b at full width
+and depth 2, run prefill and greedy decode on the card and on the CPU with
+the same weights (logits within ``SERVE_TOL`` of the largest, tokens
+equal); then gemma2-27b at full width and depth (``serve_config``: bf16,
+50.7 GiB of weights from seed 0) serves request set A (batch 4, prompt
+512, 32 tokens: greedy twice, equal; then at temperature 0.8) and set B
+(batch 1, a 4352-token prompt past the 4096 window, 8 tokens), each with
+prefill and decode time by CUDA events, the host clock and the enqueue
+time beside its bound, device-busy time, peak memory, decode parity
+(prefill P−1 plus a decode step against prefill P) and the Fig 8 verdict;
+then ``examples/torch_serve_decode.py`` on the card.  It prints one JSON
+line of kernels, with the registers and stack frame of each read from the
+built library, and, last, ``{"ok": true, "device": {...}}``.  Any failed check raises;
 nothing falls back to the CPU or to a plain version.  Imports nothing of
 JAX.
 """
@@ -356,11 +368,12 @@ def cnn_logits_check(dev: torch.device) -> None:
         del model, ref_model, card
 
 
-def device_busy(step, reps: int) -> tuple[float, list[tuple[str, float]]]:
+def device_busy(step, reps: int) -> tuple[float, list[tuple[str, float]], float]:
     """Device time of ``reps`` calls of ``step`` per call — the sum over the
     device-side events (kernels, copies, sets) ``torch.profiler`` saw, not
-    over the host ops that launched them (0.0 if it saw none) — and the
-    three device events that took most of it (name, ms per call)."""
+    over the host ops that launched them (0.0 if it saw none) — the three
+    device events that took most of it (name, ms per call), and the device
+    events per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -368,10 +381,10 @@ def device_busy(step, reps: int) -> tuple[float, list[tuple[str, float]]]:
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
-    events = sorted(((e.key, e.self_device_time_total / 1e3 / reps)
-                     for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = sorted(((e.key, e.self_device_time_total / 1e3 / reps) for e in device),
                     key=lambda kv: -kv[1])
-    return sum(ms for _, ms in events), events[:3]
+    return sum(ms for _, ms in events), events[:3], sum(e.count for e in device) / reps
 
 
 def cnn_phase(dev: torch.device, smi: str) -> dict:
@@ -407,7 +420,7 @@ def cnn_phase(dev: torch.device, smi: str) -> dict:
                 enqueue_ms = (time.perf_counter() - t0) * 1e3 / CNN_STEP_REPS
                 torch.cuda.synchronize()
                 host_ms = (time.perf_counter() - t0) * 1e3 / CNN_STEP_REPS
-                busy_ms, top = device_busy(step, 3)
+                busy_ms, top, _ = device_busy(step, 3)
                 peak = torch.cuda.max_memory_allocated() - held
                 torch.backends.cudnn.benchmark = True  # autotuned in cuda_ms's warm-up
                 tuned_ms = cuda_ms(step, CNN_STEP_REPS)
@@ -573,6 +586,15 @@ def prefill_flops(cfg, B: int, T: int) -> tuple[float, float]:
     return 2.0 * n * B * T, work
 
 
+def busy_text(busy_ms: float, host_ms: float, enqueue_ms: float, events: float, top) -> str:
+    """``device_busy``'s reading of one call beside its host-clock time."""
+    if busy_ms <= 0:
+        return "not measured (the profiler saw no device time)"
+    return (f"{busy_ms:.4f} ms ({busy_ms / host_ms:.1%} of the host-clock call) in {events:.0f} "
+            f"device events ({enqueue_ms / events * 1e3:.1f} us of enqueue each), most in "
+            + "; ".join(f"{k[:60]} {ms:.4f} ms" for k, ms in top))
+
+
 def serve_requests(engine, label: str, shape, dev, smi: str) -> dict:
     """One request set on the served model: greedy generate twice (equal
     tokens, prompts echoed), at temperature 0.8 once (set A), prefill and
@@ -612,6 +634,13 @@ def serve_requests(engine, label: str, shape, dev, smi: str) -> dict:
             lambda: eng.prefill_fn(eng.params, tokens, caches))  # noqa: B023
         prefill.append((ev, host, enq))
     require(bool(torch.isfinite(logits.float()).all()), f"serve set {label}: prefill logits")
+    pre_busy_ms, pre_top, pre_events = device_busy(
+        lambda: eng.prefill_fn(eng.params, tokens, lm.init_caches(cfg, B, eng.max_seq, dev)), 1)
+    top2 = logits.float().topk(2, dim=-1).values
+    say(f"serve: set {label} last-position logits: max|logit| "
+        f"{float(logits.float().abs().max()):.3f} (final softcap {cfg.final_softcap}), "
+        f"top-2 gap {float((top2[:, 0] - top2[:, 1]).min()):.3f} to "
+        f"{float((top2[:, 0] - top2[:, 1]).max()):.3f} across the batch")
 
     def decode_loop():
         lg = logits
@@ -623,7 +652,7 @@ def serve_requests(engine, label: str, shape, dev, smi: str) -> dict:
     require(bool(torch.isfinite(last.float()).all()), f"serve set {label}: decode logits")
     steps = G - 1
     tok = last.argmax(dim=-1, keepdim=True)
-    busy_ms, top = device_busy(
+    busy_ms, top, n_events = device_busy(
         lambda: eng.decode_fn(eng.params, tok, P + G - 1, caches), SERVE_BUSY_REPS)
     del caches, logits, last
 
@@ -650,15 +679,14 @@ def serve_requests(engine, label: str, shape, dev, smi: str) -> dict:
         f"{', '.join(f'{r[2]:.2f}' for r in prefill)} ms; bound {pre_bound:.2f} ms (this run's "
         f"{work / 1e12:.1f} TFLOP at the bf16 peak 989 TFLOP/s; 2·N·tokens "
         f"{model_flops / BF16_TENSOR_FLOPS * 1e3:.2f} ms) -> {pre_bound / pre_ms[-1]:.1%} of "
-        f"the bound ({smi})")
-    busy = (f"{busy_ms:.4f} ms a step ({busy_ms / (dec_host / steps):.1%} of the host-clock "
-            "step), most in " + "; ".join(f"{k[:60]} {ms:.4f} ms" for k, ms in top)
-            if busy_ms > 0 else "not measured (the profiler saw no device time)")
+        f"the bound; device busy "
+        f"{busy_text(pre_busy_ms, prefill[-1][1], prefill[-1][2], pre_events, pre_top)} ({smi})")
     say(f"serve: set {label} decode: {dec_ms:.4f} ms/step by CUDA events over {steps} steps, "
         f"{dec_host / steps:.4f} ms by the host clock, {dec_enq / steps:.4f} ms to enqueue; "
         f"{B / (dec_ms * 1e-3):.1f} tok/s; bound {dec_bound:.4f} ms ({weights / 1e9:.2f} GB "
         f"of weights + {kv / 1e9:.3f} GB of k/v a step at 3.35 TB/s) -> {dec_bound / dec_ms:.1%}"
-        f" of the bound; device busy {busy} ({smi})")
+        f" of the bound; device busy "
+        f"{busy_text(busy_ms, dec_host / steps, dec_enq / steps, n_events, top)} ({smi})")
     say(f"serve: set {label} decode parity (prefill {P - 1} + one decode step against prefill "
         f"{P}): {parity:.4g} x max|logit| (bound {SERVE_PARITY_TOL}), argmax equal in "
         f"{agree:.0%} of rows; peak memory {peak / 2**30:.2f} GiB")
@@ -668,18 +696,19 @@ def serve_requests(engine, label: str, shape, dev, smi: str) -> dict:
         f"{v.pim_time_s * 1e3:.4f} ms vs modeled H100 {v.gpu_time_s * 1e3:.4f} ms -> PIM "
         f"{'wins' if v.pim_wins else 'loses'}; measured H100 decode step {dec_ms:.4f} ms")
     return {"prefill_ms": pre_ms, "prefill_host_ms": [r[1] for r in prefill],
+            "prefill_enqueue_ms": [r[2] for r in prefill], "prefill_busy_ms": pre_busy_ms,
             "prefill_bound_ms": pre_bound, "decode_ms": dec_ms,
             "decode_host_ms": dec_host / steps, "decode_enqueue_ms": dec_enq / steps,
             "decode_bound_ms": dec_bound, "decode_busy_ms": busy_ms,
+            "decode_device_events": n_events,
             "tok_per_s": B / (dec_ms * 1e-3), "generate_s": generate_s, "parity": parity,
             "peak_gib": peak / 2**30}
 
 
-def serve_phase(dev: torch.device, smi: str, full=None, sets=(("A", SERVE_SET_A),
-                                                             ("B", SERVE_SET_B))) -> None:
+def serve_phase(dev: torch.device, smi: str) -> None:
     """The LM serving path: every smoke arch in float32 and gemma2-27b at
     full width and depth 2 on the card against the CPU, then gemma2-27b
-    (``full``) served at full width and depth in bf16 on request sets A and
+    served at full width and depth in bf16 on request sets A and
     B.  No kernel of the port runs here (cuBLAS and PyTorch's own kernels):
     the counts must stay 0."""
     pim_bitserial.reset_launches()
@@ -689,7 +718,7 @@ def serve_phase(dev: torch.device, smi: str, full=None, sets=(("A", SERVE_SET_A)
         model_cpu = lm.init_params(cfg, SEED, "cpu")
         card_matches_cpu(arch, cfg, model_cpu, copy.deepcopy(model_cpu).to(dev), SERVE_SMOKE,
                          dev, SEED + i)
-    full = full or get_config("gemma2_27b")
+    full = get_config("gemma2_27b")
     cfg = dataclasses.replace(f32_config(full), n_layers=2)
     model_card = lm.init_params(cfg, SEED, dev)
     model_cpu = lm.init_params(cfg, SEED, "meta")
@@ -704,6 +733,7 @@ def serve_phase(dev: torch.device, smi: str, full=None, sets=(("A", SERVE_SET_A)
     # Full float32 sums in every bf16 product, as XLA's bf16 dots keep them:
     # cuBLAS may otherwise reduce split-K partial sums in bf16.
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    sets = (("A", SERVE_SET_A), ("B", SERVE_SET_B))
     t0 = time.perf_counter()
     engine = ServeEngine.build(full, max_seq=max(P + G for _, (_, P, G) in sets), seed=SEED,
                                device=dev)

@@ -10,17 +10,13 @@ import dataclasses
 
 import torch
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-          "float16": torch.float16, "float64": torch.float64}
-
-
 def torch_dtype(name: str) -> torch.dtype:
     """A config's dtype string (``"bfloat16"``, ``"float32"``, ...) as a
     ``torch.dtype``."""
-    try:
-        return DTYPES[name]
-    except KeyError:
-        raise ValueError(f"unknown dtype {name!r}; known: {sorted(DTYPES)}") from None
+    dtype = getattr(torch, name, None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"{name!r} is not a torch dtype")
+    return dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,7 +155,7 @@ class ModelConfig:
         if kind == "rec":
             w = self.lru_dim
             # two in-proj branches, conv, RG-LRU gates, out proj + mlp + norms
-            return 2 * d * w + self.conv_width * w + 2 * w * w + w + w * d + d * self.d_ff * (3 if self.mlp_gated else 2) + 2 * d
+            return 2 * d * w + self.conv_width * w + 2 * w * w + w + w * d + mlp + 2 * d
         raise ValueError(kind)
 
     def active_param_count(self) -> int:

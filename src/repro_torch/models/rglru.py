@@ -4,8 +4,9 @@ Gated linear recurrence h_t = a_t ⊙ h_{t-1} + √(1-a_t²) ⊙ (i_t ⊙ x_t) w
 a_t = exp(-c·softplus(Λ)·r_t).  Prefill runs the recurrence as a log-depth
 (Hillis–Steele) scan over T in float32 — the reference's
 ``associative_scan`` composes the same pairs in another order, so the two
-agree to float32 rounding, not bit for bit; decode carries a [B, w] state,
-O(1) per token.
+agree to float32 rounding (within 1e-5 relative and absolute in
+``tests/test_torch_lm.py``), not bit for bit; decode carries a [B, w]
+state, O(1) per token.
 """
 
 from __future__ import annotations

@@ -78,8 +78,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
     ``RuntimeError`` with no card; ``"meta"`` allocates nothing)."""
     device = resolve_device(device)
     generator = None if device.type == "meta" else torch.Generator(device=device).manual_seed(seed)
-    with torch.no_grad():
-        return Transformer(cfg, device=device, generator=generator)
+    return Transformer(cfg, device=device, generator=generator)
 
 
 # ------------------------------------------------------------------ caches

@@ -16,13 +16,12 @@ import dataclasses
 import importlib.util
 import os
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from _torch_lm import f32, inputs, n, port_model, ref_params, rel_err, t, to_numpy
+from _torch_lm import f32, inputs, port_model, ref_params, rel_err, t, to_numpy
 from repro.configs import get_smoke_config as ref_smoke
 from repro.launch import serve as ref_serve
 from repro.launch.mesh import make_host_mesh
@@ -216,7 +215,9 @@ def test_lm_caches_rejects_a_mismatch():
     cfg = f32(get_smoke_config("recurrentgemma_9b"))
     ref = to_numpy(ref_T.init_caches(cfg, 2, 16))
     got = convert.lm_caches(ref, cfg, 2, 16)
-    assert [sorted(c) for c in got] == [sorted(c) for c in T.init_caches(cfg, 2, 16, "cpu")]
+    fresh = T.init_caches(cfg, 2, 16, "cpu")
+    assert [sorted(c) for c in got] == [sorted(c) for c in fresh]
+    assert all(bool((c["pos"] == -1).all()) for c in fresh if "pos" in c)  # empty slots
     with pytest.raises(ValueError):  # the local ring is min(seq_len, 8) long
         convert.lm_caches(ref, cfg, 2, 4)
     with pytest.raises(ValueError):
