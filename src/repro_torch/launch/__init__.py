@@ -1,2 +1,2 @@
-"""Launch drivers of the LM substrate: step builders (``steps``) and the
+"""Launch entry points of the LM substrate: step functions (``steps``) and the
 serving engine (``serve``, also ``python -m repro_torch.launch.serve``)."""

@@ -1,4 +1,4 @@
-"""Serving driver: batched prefill + decode with temperature sampling.
+"""Serving engine: batched prefill + decode with temperature sampling.
 
 The same two steps the reference's serving engine jits, driven eagerly on
 one CUDA card (``device=None``) or, when asked, on the CPU.  There is one

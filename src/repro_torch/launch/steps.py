@@ -1,4 +1,4 @@
-"""Step-function builders and analytic sizing shared by the serving driver
+"""Step-function factories and analytic sizing shared by the serving engine
 (the serving half of the reference's ``launch/steps.py``).
 
 Shapes come from the ``meta`` device: building the model or its caches

@@ -198,7 +198,7 @@ def test_serve_main_on_the_cpu(arch, capsys):
     assert "tok/s" in capsys.readouterr().out
 
 
-def test_step_builders_take_cross_embeddings_positionally():
+def test_step_functions_take_cross_embeddings_positionally():
     cfg = f32(get_smoke_config("llama_3_2_vision_11b"))
     model = T.init_params(cfg, 0, "cpu")
     tokens, cross = inputs(cfg, 2, 6)
