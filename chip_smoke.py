@@ -37,8 +37,11 @@ than the loop kernel on the f32 MAC), writing
 every kernel count set to 0 before it (it must launch none of the port's
 kernels): each arch's smoke config in float32, and gemma2-27b at full width
 and depth 2, run prefill and greedy decode on the card and on the CPU with
-the same weights (logits within ``SERVE_TOL`` of the largest, tokens
-equal); then gemma2-27b at full width and depth (``serve_config``: bf16,
+the same weights through the serving engine's loop (logits within
+``SERVE_TOL`` of the largest, tokens equal), and each smoke config at its
+default dtypes (bf16 compute) runs the forward and prefill plus
+teacher-forced decode on both (each position within ``SERVE_BF16_TOL``);
+then gemma2-27b at full width and depth (``serve_config``: bf16,
 50.7 GiB of weights from seed 0) serves request set A (batch 4, prompt
 512, 32 tokens: greedy twice, equal; then at temperature 0.8) and set B
 (batch 1, a 4352-token prompt past the 4096 window, 8 tokens), each with
@@ -110,6 +113,9 @@ EXEC_JSON = {n: os.path.join(ROOT, "build", f"BENCH_exec_torch_{n}.json") for n 
 SERVE_TOL = 1e-4
 SERVE_SMOKE = (2, 12, 4)  # batch, prompt tokens, greedy decode steps: each smoke arch
 SERVE_UNIT = (1, 8, 2)  # the same for gemma2-27b at full width, depth 2
+SERVE_BF16 = (2, 12, 20)  # batch, prompt tokens, tokens in all: each smoke arch in bf16
+SERVE_BF16_TOL = 0.05  # per position, x max|logit|: tests/test_torch_lm.py's bf16 bound
+SERVE_MOE_BF16_SHARE = 7 / 8  # of the positions, for MoE archs
 SERVE_SET_A = (4, 512, 32)  # batch, prompt tokens, generated tokens: gemma2-27b served
 SERVE_SET_B = (1, 4352, 8)  # a prompt past the 4096 window: the local rings wrap
 SERVE_TEMPERATURE = 0.8
@@ -496,19 +502,42 @@ def f32_config(cfg):
 
 
 def greedy(model, cfg, tokens, cross, steps: int, device) -> tuple[list, torch.Tensor]:
-    """Prefill ``tokens`` then ``steps`` greedy decode steps on ``device``:
-    each step's logits (float64, on the CPU) and the greedy tokens."""
+    """Prefill ``tokens`` then ``steps`` greedy decode steps through the
+    serving engine's loop on ``device``: the logits of prefill and of each
+    step (float64, on the CPU) and the ``steps + 1`` greedy tokens."""
     B, P = tokens.shape
-    caches = lm.init_caches(cfg, B, P + steps, device)
+    engine = ServeEngine(cfg, model, P + steps, device)
+    out, logits = engine.generate(tokens.numpy(), steps + 1, temperature=0.0,
+                                  cross_embeds=cross, return_logits=True)
+    return [lg.double().cpu() for lg in logits], torch.from_numpy(out[:, P:])
+
+
+def forced(model, cfg, tokens, cross, prompt: int, device) -> torch.Tensor:
+    """Prefill ``tokens[:, :prompt]``, then decode each later token of
+    ``tokens`` in turn (teacher-forced, so two devices see the same inputs
+    whatever their argmax): [B, 1 + T - prompt, V] logits, float64 on the
+    CPU."""
+    B, T = tokens.shape
+    tokens = tokens.to(device)
     cross = None if cross is None else cross.to(device)
-    logits, caches = lm.prefill(model, tokens.to(device), cfg, caches, cross_embeds=cross)
-    out, picked = [logits.double().cpu()], []
-    for i in range(steps):
-        tok = logits.argmax(dim=-1, keepdim=True)
-        picked.append(tok.cpu())
-        logits, caches = lm.decode_step(model, tok, P + i, cfg, caches, cross_embeds=cross)
-        out.append(logits.double().cpu())
-    return out, torch.cat(picked, dim=1)
+    caches = lm.init_caches(cfg, B, T, device)
+    logits, caches = lm.prefill(model, tokens[:, :prompt], cfg, caches, cross_embeds=cross)
+    out = [logits]
+    for pos in range(prompt, T - 1):
+        logits, caches = lm.decode_step(model, tokens[:, pos:pos + 1], pos, cfg, caches,
+                                        cross_embeds=cross)
+        out.append(logits)
+    return torch.stack(out, dim=1).double().cpu()
+
+
+def serve_inputs(cfg, shape, seed: int) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Seeded prompts [B, P] and, for the VLM, patch embeddings."""
+    B, P = shape
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (B, P), generator=gen)
+    cross = (torch.randn((B, cfg.cross_kv_len, cfg.d_model), generator=gen)
+             if cfg.family == "vlm" else None)
+    return tokens, cross
 
 
 def card_matches_cpu(label: str, cfg, model_cpu, model_card, shape, dev, seed: int) -> None:
@@ -516,10 +545,7 @@ def card_matches_cpu(label: str, cfg, model_cpu, model_card, shape, dev, seed: i
     the card's: every step's float32 logits within ``SERVE_TOL`` of the
     largest, greedy tokens equal."""
     B, P, steps = shape
-    gen = torch.Generator().manual_seed(seed)
-    tokens = torch.randint(0, cfg.vocab, (B, P), generator=gen)
-    cross = (torch.randn((B, cfg.cross_kv_len, cfg.d_model), generator=gen)
-             if cfg.family == "vlm" else None)
+    tokens, cross = serve_inputs(cfg, (B, P), seed)
     t0 = time.perf_counter()
     want, want_tok = greedy(model_cpu, cfg, tokens, cross, steps, torch.device("cpu"))
     cpu_s = time.perf_counter() - t0
@@ -536,6 +562,46 @@ def card_matches_cpu(label: str, cfg, model_cpu, model_card, shape, dev, seed: i
         f"{cfg.d_model}): prefill {P} tokens at batch {B} + {steps} greedy steps in float32: "
         f"card within {max(errs):.3g} x max|logit| of the CPU at every step (bound {SERVE_TOL}),"
         f" greedy tokens equal {got_tok[0].tolist()}; {cpu_s:.1f} s CPU, {card_s:.1f} s card")
+
+
+def bf16_card_matches_cpu(label: str, cfg, model_cpu, model_card, dev, seed: int) -> dict:
+    """At the arch's default dtypes (bf16 compute): the full forward and the
+    serving path (prefill, then teacher-forced decode steps) on the card
+    against the same weights on the CPU.  Each position's logits within
+    ``SERVE_BF16_TOL`` x max|logit| (the bound of ``tests/test_torch_lm.py``
+    against the reference), at every position, or at ``SERVE_MOE_BF16_SHARE``
+    of them for MoE archs, where a bf16 rounding can flip a near-tied
+    router choice."""
+    B, P, T = SERVE_BF16
+    tokens, cross = serve_inputs(cfg, (B, T), seed)
+    readings = {}
+    for path in ("forward", "serve"):
+        runs = []
+        for model, d in ((model_cpu, torch.device("cpu")), (model_card, dev)):
+            if path == "forward":
+                with torch.no_grad():
+                    logits, _, _ = lm.forward(model, tokens.to(d), cfg, cross_embeds=None
+                                              if cross is None else cross.to(d))
+                runs.append(logits.double().cpu())
+            else:
+                runs.append(forced(model, cfg, tokens, cross, P, d))
+        want, got = runs
+        require(bool(torch.isfinite(got).all()), f"serve {label} bf16 {path}: non-finite logits")
+        per_pos = (got - want).abs().amax(-1) / want.abs().max()
+        share = float((per_pos <= SERVE_BF16_TOL).double().mean())
+        need = SERVE_MOE_BF16_SHARE if cfg.n_experts else 1.0
+        require(share >= need, f"serve {label} bf16 {path}: {share:.3f} of positions within "
+                f"{SERVE_BF16_TOL} x max|logit| (need {need:.3f}), worst "
+                f"{float(per_pos.max()):.4g}")
+        readings[path] = (float(per_pos.max()), share, per_pos.numel())
+    say(f"serve: {label} at default dtypes ({cfg.compute_dtype} compute, {cfg.param_dtype} "
+        f"weights), card against the CPU: forward over {B}x{T} tokens worst "
+        f"{readings['forward'][0]:.4g} x max|logit|, {readings['forward'][1]:.0%} of "
+        f"{readings['forward'][2]} positions within; prefill {P} + {T - P - 1} teacher-forced "
+        f"decode steps worst {readings['serve'][0]:.4g}, {readings['serve'][1]:.0%} of "
+        f"{readings['serve'][2]} positions within (bound {SERVE_BF16_TOL} at "
+        f"{'7/8 of' if cfg.n_experts else 'all'} positions)")
+    return {path: r[0] for path, r in readings.items()}
 
 
 def timed(fn) -> tuple[float, float, float, object]:
@@ -706,18 +772,27 @@ def serve_requests(engine, label: str, shape, dev, smi: str) -> dict:
 
 
 def serve_phase(dev: torch.device, smi: str) -> None:
-    """The LM serving path: every smoke arch in float32 and gemma2-27b at
-    full width and depth 2 on the card against the CPU, then gemma2-27b
+    """The LM serving path: every smoke arch in float32 and in bf16, and
+    gemma2-27b at full width and depth 2 in float32, on the card against the
+    CPU, then gemma2-27b
     served at full width and depth in bf16 on request sets A and
     B.  No kernel of the port runs here (cuBLAS and PyTorch's own kernels):
     the counts must stay 0."""
     pim_bitserial.reset_launches()
     pim_matmul.reset_launches()
+    # Full float32 sums in every bf16 product, as XLA's bf16 dots keep them:
+    # cuBLAS may otherwise reduce split-K partial sums in bf16.
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    bf16 = {}
     for i, arch in enumerate(ARCHS):
         cfg = f32_config(get_smoke_config(arch))
         model_cpu = lm.init_params(cfg, SEED, "cpu")
         card_matches_cpu(arch, cfg, model_cpu, copy.deepcopy(model_cpu).to(dev), SERVE_SMOKE,
                          dev, SEED + i)
+        cfg = get_smoke_config(arch)
+        model_cpu = lm.init_params(cfg, SEED, "cpu")
+        bf16[arch] = bf16_card_matches_cpu(arch, cfg, model_cpu,
+                                           copy.deepcopy(model_cpu).to(dev), dev, SEED + i)
     full = get_config("gemma2_27b")
     cfg = dataclasses.replace(f32_config(full), n_layers=2)
     model_card = lm.init_params(cfg, SEED, dev)
@@ -730,9 +805,6 @@ def serve_phase(dev: torch.device, smi: str) -> None:
 
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
-    # Full float32 sums in every bf16 product, as XLA's bf16 dots keep them:
-    # cuBLAS may otherwise reduce split-K partial sums in bf16.
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     sets = (("A", SERVE_SET_A), ("B", SERVE_SET_B))
     t0 = time.perf_counter()
     engine = ServeEngine.build(full, max_seq=max(P + G for _, (_, P, G) in sets), seed=SEED,
@@ -762,7 +834,7 @@ def serve_phase(dev: torch.device, smi: str) -> None:
                 **{f"pim_matmul/{k}": v for k, v in pim_matmul.LAUNCHES.items()}}
     say(f"serve: the port's kernel launches in the serve phase {launches}")
     require(not any(launches.values()), "the serve phase launched a kernel of the port")
-    say(f"serve: summary {json.dumps(results)}")
+    say(f"serve: summary {json.dumps({**results, 'smoke_bf16_worst': bf16})}")
 
 
 def main() -> int:

@@ -169,14 +169,17 @@ def lm_params(params: dict, cfg) -> dict[str, torch.Tensor]:
     return _to_torch(flat, want, f"{cfg.name}: parameters")
 
 
-def lm_caches(caches: dict, cfg, batch: int, seq_len: int, device="cpu") -> list[dict]:
+def lm_caches(caches: dict, cfg, batch: int, seq_len: int, device=None) -> list[dict]:
     """The reference's serving caches (``repro.models.transformer.init_caches``
     layout, numpy leaves) as the port's per-layer list, in the port's cache
-    dtypes on ``device`` — to compare cache contents, or to decode from a
-    cache the reference filled.  Raises ``ValueError`` unless every entry's
-    keys and shapes are those of ``init_caches(cfg, batch, seq_len)``."""
+    dtypes on ``device`` (``None`` = the CUDA card; with no card it raises
+    ``RuntimeError`` unless ``device="cpu"``) — to compare cache contents,
+    or to decode from a cache the reference filled.  Raises ``ValueError``
+    unless every entry's keys and shapes are those of
+    ``init_caches(cfg, batch, seq_len)``."""
     from repro_torch.models import transformer
 
+    device = resolve_device(device)
     want = transformer.init_caches(cfg, batch, seq_len, device="meta")
     out = []
     for i, (got, ref) in enumerate(zip(_per_layer(caches, cfg), want, strict=True)):

@@ -28,12 +28,19 @@ from repro_torch.pim.frontend import resolve_device
 
 @dataclasses.dataclass
 class ServeEngine:
+    """``params`` served with caches of ``max_seq`` positions on ``device``;
+    ``build`` draws a fresh serving model, and the constructor serves a
+    model the caller already holds (any dtypes)."""
     cfg: ModelConfig
     params: tfm.Transformer
-    prefill_fn: object
-    decode_fn: object
     max_seq: int
     device: torch.device
+    prefill_fn: object = dataclasses.field(init=False, repr=False)
+    decode_fn: object = dataclasses.field(init=False, repr=False)
+
+    def __post_init__(self):
+        self.prefill_fn = steps_mod.make_prefill_step(self.cfg)
+        self.decode_fn = steps_mod.make_decode_step(self.cfg)
 
     @classmethod
     def build(cls, cfg: ModelConfig, max_seq: int, seed: int = 0, device=None):
@@ -43,36 +50,35 @@ class ServeEngine:
         unless ``device="cpu"``).  Caches hold ``max_seq`` positions."""
         device = resolve_device(device)
         scfg = steps_mod.serve_config(cfg)
-        with_cross = scfg.family == "vlm"
-        return cls(
-            cfg=scfg, params=tfm.init_params(scfg, seed, device),
-            prefill_fn=steps_mod.make_prefill_step(scfg, with_cross=with_cross),
-            decode_fn=steps_mod.make_decode_step(scfg, with_cross=with_cross),
-            max_seq=max_seq, device=device,
-        )
+        return cls(cfg=scfg, params=tfm.init_params(scfg, seed, device), max_seq=max_seq,
+                   device=device)
 
     def generate(self, prompts: np.ndarray, gen_len: int, *, temperature: float = 1.0,
-                 seed: int = 0, cross_embeds=None) -> np.ndarray:
+                 seed: int = 0, cross_embeds=None, return_logits: bool = False):
         """prompts: [B, P] int.  Returns [B, P+gen_len] int32: the prompts,
         then the sampled tokens.  ``temperature=0`` is greedy; otherwise a
         ``torch.Generator`` seeded with ``seed`` on the device samples (its
-        stream is not ``jax.random``'s)."""
+        stream is not ``jax.random``'s).  With ``return_logits`` it returns
+        the tokens and the ``gen_len`` [B, V] logits each token was drawn
+        from (prefill's, then each decode step's), on the device."""
         B, P = prompts.shape
         dev = self.device
         caches = tfm.init_caches(self.cfg, B, self.max_seq, dev)
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64).to(dev)
-        extra = () if cross_embeds is None else (torch.as_tensor(cross_embeds).to(dev),)
-        logits, caches = self.prefill_fn(self.params, tokens, caches, *extra)
+        cross = None if cross_embeds is None else torch.as_tensor(cross_embeds).to(dev)
+        logits, caches = self.prefill_fn(self.params, tokens, caches, cross)
         generator = torch.Generator(device=dev).manual_seed(seed)
-        out = [tokens]
+        out, seen = [tokens], [logits]
         tok = _sample(logits, generator, temperature)
         for i in range(gen_len):
             out.append(tok)
             if i == gen_len - 1:
                 break
-            logits, caches = self.decode_fn(self.params, tok, P + i, caches, *extra)
+            logits, caches = self.decode_fn(self.params, tok, P + i, caches, cross)
+            seen.append(logits)
             tok = _sample(logits, generator, temperature)
-        return torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
+        out = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
+        return (out, seen) if return_logits else out
 
 
 def _sample(logits: torch.Tensor, generator: torch.Generator, temperature: float):
@@ -98,15 +104,15 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "vlm":
+        raise ValueError(f"{cfg.name} attends to image patch embeddings, which this entry "
+                         "point has no frontend for: serve it through "
+                         "ServeEngine.generate(prompts, gen_len, cross_embeds=...)")
     engine = ServeEngine.build(cfg, max_seq=args.prompt_len + args.gen, device=args.device)
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab, size=(args.batch, args.prompt_len)).astype(np.int32)
-    cross = None
-    if cfg.family == "vlm":  # the vision frontend is a stub: random patch embeddings
-        cross = rng.standard_normal((args.batch, cfg.cross_kv_len, cfg.d_model)).astype(
-            np.float32)
     t0 = time.perf_counter()
-    out = engine.generate(prompts, args.gen, temperature=args.temperature, cross_embeds=cross)
+    out = engine.generate(prompts, args.gen, temperature=args.temperature)
     dt = time.perf_counter() - t0  # generate returns host numpy: the device is done
     tput = args.batch * args.gen / dt
     print(f"[serve] {cfg.name} on {engine.device}: generated {out.shape} in {dt:.2f}s "

@@ -15,26 +15,16 @@ from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.models import transformer as tfm
 
 
-def make_prefill_step(cfg: ModelConfig, with_cross: bool = False):
-    if with_cross:
-        def prefill_step(params, tokens, caches, cross_embeds):
-            return tfm.prefill(params, tokens, cfg, caches, cross_embeds=cross_embeds)
-    else:
-        def prefill_step(params, tokens, caches):
-            return tfm.prefill(params, tokens, cfg, caches)
+def make_prefill_step(cfg: ModelConfig):
+    def prefill_step(params, tokens, caches, cross_embeds=None):
+        return tfm.prefill(params, tokens, cfg, caches, cross_embeds=cross_embeds)
 
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, with_cross: bool = False):
-    if with_cross:
-        def decode_step(params, tokens, position, caches, cross_embeds):
-            return tfm.decode_step(
-                params, tokens, position, cfg, caches, cross_embeds=cross_embeds
-            )
-    else:
-        def decode_step(params, tokens, position, caches):
-            return tfm.decode_step(params, tokens, position, cfg, caches)
+def make_decode_step(cfg: ModelConfig):
+    def decode_step(params, tokens, position, caches, cross_embeds=None):
+        return tfm.decode_step(params, tokens, position, cfg, caches, cross_embeds=cross_embeds)
 
     return decode_step
 

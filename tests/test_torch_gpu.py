@@ -209,11 +209,11 @@ def test_cnn_logits_on_card_match_float64(cuda, name, batch, img, train):
 
 @pytest.mark.parametrize("arch", ["gemma2_27b", "recurrentgemma_9b", "deepseek_moe_16b"])
 def test_serve_on_card_matches_cpu(cuda, arch):
-    """A smoke LM in float32 (TF32 off): prefill 12 tokens at batch 2 and 4
-    greedy decode steps on the card against the same weights on the CPU,
-    logits within 1e-4 of the largest, greedy tokens equal; then the serving
-    engine on its default device (the card) generates the same tokens
-    twice."""
+    """A smoke LM in float32 (TF32 off) served by the engine's loop: prefill
+    12 tokens at batch 2 and 4 greedy decode steps on the card against the
+    same weights on the CPU, logits within 1e-4 of the largest, greedy
+    tokens equal; then the serving engine on its default device (the card)
+    generates the same tokens twice."""
     import copy
     import dataclasses
 
@@ -228,25 +228,20 @@ def test_serve_on_card_matches_cpu(cuda, arch):
     model = lm.init_params(cfg, 0, "cpu")
     card = copy.deepcopy(model).to(cuda)
     tokens = torch.randint(0, cfg.vocab, (2, 12), generator=torch.Generator().manual_seed(3))
+    prompts = tokens.numpy().astype(np.int32)
     runs = []
     with full_precision():
         for m, dev in ((model, torch.device("cpu")), (card, cuda)):
-            caches = lm.init_caches(cfg, 2, 16, dev)
-            logits, caches = lm.prefill(m, tokens.to(dev), cfg, caches)
-            steps, picked = [logits.double().cpu()], []
-            for i in range(4):
-                tok = logits.argmax(dim=-1, keepdim=True)
-                picked.append(tok.cpu())
-                logits, caches = lm.decode_step(m, tok, 12 + i, cfg, caches)
-                steps.append(logits.double().cpu())
-            runs.append((steps, torch.cat(picked, dim=1)))
+            out, logits = ServeEngine(cfg, m, 16, dev).generate(
+                prompts, 5, temperature=0.0, return_logits=True)
+            runs.append(([lg.double().cpu() for lg in logits], out))
     (want, want_tok), (got, got_tok) = runs
+    assert len(got) == len(want) == 5
     for g, w in zip(got, want):
         assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max())
-    assert torch.equal(got_tok, want_tok)
+    assert np.array_equal(got_tok, want_tok)
     engine = ServeEngine.build(cfg, 20)
     assert engine.device.type == "cuda"
-    prompts = tokens.numpy().astype(np.int32)
     a = engine.generate(prompts, 8, temperature=0.0)
     assert np.array_equal(a, engine.generate(prompts, 8, temperature=0.0))
     assert np.array_equal(a[:, :12], prompts)

@@ -68,8 +68,8 @@ def _prefill_and_decode(cfg, prompt_len: int, max_seq: int):
     caches = T.init_caches(cfg, B, max_seq, "cpu")
     got, caches = T.prefill(model, t(tokens), cfg, caches, cross_embeds=t(cross))
     assert got.shape == (B, cfg.vocab) and rel_err(got, want) <= TOL
-    _assert_caches_close(caches, convert.lm_caches(to_numpy(ref_caches), cfg, B, max_seq),
-                         cfg, "prefill")
+    _assert_caches_close(
+        caches, convert.lm_caches(to_numpy(ref_caches), cfg, B, max_seq, "cpu"), cfg, "prefill")
     for i in range(STEPS):
         ref_tok = jnp.argmax(want, axis=-1)[:, None].astype(jnp.int32)
         tok = got.argmax(dim=-1, keepdim=True)
@@ -79,8 +79,8 @@ def _prefill_and_decode(cfg, prompt_len: int, max_seq: int):
         got, caches = T.decode_step(model, tok, prompt_len + i, cfg, caches,
                                     cross_embeds=t(cross))
         assert rel_err(got, want) <= TOL, (i, rel_err(got, want))
-    _assert_caches_close(caches, convert.lm_caches(to_numpy(ref_caches), cfg, B, max_seq),
-                         cfg, "decode")
+    _assert_caches_close(
+        caches, convert.lm_caches(to_numpy(ref_caches), cfg, B, max_seq, "cpu"), cfg, "decode")
     return caches, ref_caches
 
 
@@ -115,7 +115,7 @@ def test_kv_quant_decode_matches_reference():
     _, caches = T.prefill(model, t(tokens[:, :P]), cfg, caches)
     got, caches = T.decode_step(model, t(tokens[:, P:]), P, cfg, caches)
     assert rel_err(got, want) <= TOL
-    ref = convert.lm_caches(to_numpy(ref_caches), cfg, B, P + 1)
+    ref = convert.lm_caches(to_numpy(ref_caches), cfg, B, P + 1, "cpu")
     for g, w in zip(caches, ref):
         for k in ("k", "v"):
             diff = (g[k].int() - w[k].int()).abs()
@@ -190,10 +190,17 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("arch", ["gemma2-27b", "llama-3.2-vision-11b"])
 def test_serve_main_on_the_cpu(arch, capsys):
-    """The reference's flags plus ``--device``; the VLM gets stub patch
-    embeddings (the reference's ``main`` passes none and fails on it)."""
-    out = serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
-                      "--prompt-len", "8", "--gen", "4", "--temperature", "0"])
+    """The reference's flags plus ``--device``.  The VLM is refused with a
+    pointer to ``ServeEngine.generate(cross_embeds=...)``: the entry point
+    has no vision frontend (the reference's ``main`` passes none and fails
+    on it)."""
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2", "--prompt-len", "8",
+            "--gen", "4", "--temperature", "0"]
+    if "vision" in arch:
+        with pytest.raises(ValueError, match="cross_embeds"):
+            serve.main(argv)
+        return
+    out = serve.main(argv)
     assert out.shape == (2, 12) and out.dtype == np.int32
     assert "tok/s" in capsys.readouterr().out
 
@@ -203,9 +210,8 @@ def test_step_functions_take_cross_embeddings_positionally():
     model = T.init_params(cfg, 0, "cpu")
     tokens, cross = inputs(cfg, 2, 6)
     caches = T.init_caches(cfg, 2, 8, "cpu")
-    logits, caches = steps.make_prefill_step(cfg, with_cross=True)(model, t(tokens), caches,
-                                                                    t(cross))
-    logits2, _ = steps.make_decode_step(cfg, with_cross=True)(
+    logits, caches = steps.make_prefill_step(cfg)(model, t(tokens), caches, t(cross))
+    logits2, _ = steps.make_decode_step(cfg)(
         model, logits.argmax(-1, keepdim=True), 6, caches, t(cross))
     assert logits.shape == logits2.shape == (2, cfg.vocab)
     assert steps.serve_config(cfg).param_dtype == "bfloat16"
@@ -214,16 +220,40 @@ def test_step_functions_take_cross_embeddings_positionally():
 def test_lm_caches_rejects_a_mismatch():
     cfg = f32(get_smoke_config("recurrentgemma_9b"))
     ref = to_numpy(ref_T.init_caches(cfg, 2, 16))
-    got = convert.lm_caches(ref, cfg, 2, 16)
+    got = convert.lm_caches(ref, cfg, 2, 16, "cpu")
     fresh = T.init_caches(cfg, 2, 16, "cpu")
     assert [sorted(c) for c in got] == [sorted(c) for c in fresh]
     assert all(bool((c["pos"] == -1).all()) for c in fresh if "pos" in c)  # empty slots
     with pytest.raises(ValueError):  # the local ring is min(seq_len, 8) long
-        convert.lm_caches(ref, cfg, 2, 4)
+        convert.lm_caches(ref, cfg, 2, 4, "cpu")
     with pytest.raises(ValueError):
-        convert.lm_caches(ref, cfg, 3, 16)
+        convert.lm_caches(ref, cfg, 3, 16, "cpu")
     with pytest.raises(ValueError):
-        convert.lm_caches({**ref, "tail": []}, cfg, 2, 16)
+        convert.lm_caches({**ref, "tail": []}, cfg, 2, 16, "cpu")
+
+
+def test_lm_caches_defaults_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = f32(get_smoke_config("stablelm_3b"))
+    ref = to_numpy(ref_T.init_caches(cfg, 1, 8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.lm_caches(ref, cfg, 1, 8)
+    assert convert.lm_caches(ref, cfg, 1, 8, device="cpu")[0]["k"].device.type == "cpu"
+
+
+def test_generate_returns_the_logits_each_token_was_drawn_from():
+    """``return_logits``: one [B, V] logits per generated token, greedy
+    tokens their argmax, and the same tokens as a plain ``generate``; a
+    model the caller holds is served as it is (float32 here)."""
+    cfg = f32(get_smoke_config("recurrentgemma_9b"))
+    engine = serve.ServeEngine(cfg, T.init_params(cfg, 0, "cpu"), P + 5, torch.device("cpu"))
+    prompts, _ = inputs(cfg, B, P, seed=3)
+    out, logits = engine.generate(prompts, 5, temperature=0.0, return_logits=True)
+    assert len(logits) == 5 and all(lg.shape == (B, cfg.vocab) for lg in logits)
+    assert logits[0].dtype == torch.float32
+    picked = torch.stack([lg.argmax(-1) for lg in logits], dim=1)
+    np.testing.assert_array_equal(out[:, P:], picked.numpy())
+    np.testing.assert_array_equal(out, engine.generate(prompts, 5, temperature=0.0))
 
 
 def test_serve_decode_example_on_the_cpu(capsys):
