@@ -65,6 +65,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -79,8 +80,14 @@ from benchmarks import (torch_fig4_cc, torch_fig5_matmul, torch_fig6_cnn_infer, 
 from repro_torch.configs import ARCHS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.analyzer import Workload, analyze  # noqa: E402
 from repro_torch.core.costmodel import H100  # noqa: E402
+from repro_torch.checkpoint import store  # noqa: E402
+from repro_torch.configs import SHAPES  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticStream  # noqa: E402
 from repro_torch.kernels import _build, ops, pim_bitserial, pim_matmul  # noqa: E402
+from repro_torch.launch import steps as lm_steps  # noqa: E402
+from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.launch.serve import ServeEngine  # noqa: E402
+from repro_torch.runtime.fault_tolerance import FTConfig, FaultInjector  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 
@@ -124,6 +131,19 @@ SERVE_TEMPERATURE = 0.8
 SERVE_PARITY_TOL = 0.05
 SERVE_PREFILL_REPS = 3
 SERVE_BUSY_REPS = 3
+# The LM training phase.  Card against CPU in float32: the loss within
+# TRAIN_LOSS_RTOL relative, every gradient within SERVE_TOL x its largest.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_SMOKE = (2, 16)  # batch, tokens: each smoke arch
+TRAIN_UNIT = (2, 128)  # the same for stablelm-3b at full width, depth 2
+# stablelm-3b at full width and depth: one sequence of train_4k's length a
+# step (its global batch of 256 cut to 1: one card, no accumulation).
+TRAIN_ARCH = "stablelm_3b"
+TRAIN_SEQ = SHAPES["train_4k"].seq_len
+TRAIN_WARMUP, TRAIN_TIMED = 1, 3
+# Bytes a parameter: AdamW reads p, g, m, v and writes p, m, v (float32);
+# clipping reads g for the norm, then reads g and writes the scaled copy.
+ADAMW_BYTES, CLIP_BYTES = 28, 12
 
 F32_SPECIALS = np.array(
     [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45, 1.1754942e-38,
@@ -837,6 +857,206 @@ def serve_phase(dev: torch.device, smi: str) -> None:
     say(f"serve: summary {json.dumps({**results, 'smoke_bf16_worst': bf16})}")
 
 
+def train_batch(cfg, shape, seed: int, device) -> dict:
+    """A ``SyntheticStream`` batch (and, for the VLM, seeded patch
+    embeddings) on ``device``."""
+    B, T = shape
+    batch = SyntheticStream(DataConfig(cfg.vocab, T, B, seed=seed)).next_batch(0)
+    if cfg.family == "vlm":
+        gen = torch.Generator().manual_seed(seed)
+        batch["cross_embeds"] = torch.randn((B, cfg.cross_kv_len, cfg.d_model), generator=gen)
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def train_matches_cpu(label: str, cfg, model_cpu, model_card, shape, dev, seed: int) -> None:
+    """The loss and every gradient of one batch on the CPU and on the card
+    from the same weights, then one AdamW train step on each (its loss and
+    gradient norm within ``TRAIN_LOSS_RTOL``, every parameter finite)."""
+    runs = []
+    for model, d in ((model_cpu, torch.device("cpu")), (model_card, dev)):
+        batch = train_batch(cfg, shape, seed, d)
+        t0 = time.perf_counter()
+        loss, _, grads = lm_steps.loss_and_grads(model, batch, cfg)
+        _, opt = lm_steps.choose_optimizer(cfg, "adamw")
+        state = opt.init(dict(model.named_parameters()))
+        _, _, metrics = lm_steps.make_train_step(cfg, opt)(model, state, batch)
+        finite = all(bool(torch.isfinite(p).all()) for p in model.parameters())
+        runs.append((float(loss), {k: g.cpu() for k, g in grads.items()}, metrics,
+                     finite, time.perf_counter() - t0))
+        del grads, state
+    (want_loss, want, want_m, _, cpu_s), (loss, got, got_m, finite, card_s) = runs
+    require(finite and np.isfinite(loss), f"train {label}: non-finite loss or parameters")
+    loss_err = abs(loss - want_loss) / abs(want_loss)
+    require(loss_err <= TRAIN_LOSS_RTOL, f"train {label}: loss {loss} on the card, {want_loss} "
+            "on the CPU")
+    errs = {k: float((got[k].double() - w.double()).abs().max() / w.abs().max().clamp(min=1e-30))
+            for k, w in want.items()}
+    worst = max(errs, key=errs.get)
+    require(errs[worst] <= SERVE_TOL, f"train {label}: gradient {worst} off the CPU's by "
+            f"{errs[worst]:.3g} x its largest")
+    for key in ("loss", "grad_norm"):
+        err = abs(float(got_m[key]) - float(want_m[key])) / abs(float(want_m[key]))
+        require(err <= TRAIN_LOSS_RTOL, f"train {label}: step {key} off the CPU's by {err:.3g}")
+    say(f"train: {label} ({cfg.family}, {cfg.n_layers} layers, d {cfg.d_model}), "
+        f"{shape[0]}x{shape[1]} tokens in float32: loss {loss:.6f}, within {loss_err:.3g} of "
+        f"the CPU's (bound {TRAIN_LOSS_RTOL}); {len(errs)} gradients within "
+        f"{errs[worst]:.3g} x their largest (worst {worst}; bound {SERVE_TOL}); an AdamW "
+        f"step's loss and grad norm {float(got_m['grad_norm']):.4f} agree; {cpu_s:.1f} s CPU, "
+        f"{card_s:.1f} s card")
+
+
+def train_bound(cfg, T: int) -> dict:
+    """Least time for one training step on ``T`` tokens, in ms, term by
+    term: 6·N·T FLOPs and causal attention's forward and backward
+    (6·L·T²·d) at the bf16 peak, AdamW's and clipping's bytes at 3.35 TB/s,
+    and, apart, the forward that ``remat="full"`` recomputes."""
+    n, L, d = cfg.param_count(), cfg.n_layers, cfg.d_model
+    terms = {"6NT": 6.0 * n * T / BF16_TENSOR_FLOPS,
+             "attention": 6.0 * L * T * T * d / BF16_TENSOR_FLOPS,
+             "adamw": ADAMW_BYTES * n / HBM_BYTES_PER_S,
+             "clip": CLIP_BYTES * n / HBM_BYTES_PER_S}
+    terms = {k: v * 1e3 for k, v in terms.items()}
+    terms["bound"] = sum(terms.values())
+    terms["remat"] = (2.0 * n * T + 2.0 * L * T * T * d) / BF16_TENSOR_FLOPS * 1e3
+    return terms
+
+
+def train_timed(dev: torch.device, smi: str) -> dict:
+    """stablelm-3b at full width and depth (float32 parameters, bf16
+    compute, ``remat="full"``, AdamW as ``choose_optimizer`` gives it, grad
+    clip 1.0) on one ``TRAIN_SEQ``-token sequence a step: ``TRAIN_WARMUP``
+    then ``TRAIN_TIMED`` steps by CUDA events, the host clock and the
+    enqueue time, the device-busy time of one more, peak memory."""
+    cfg = get_config(TRAIN_ARCH)
+    n = cfg.param_count()
+    reckoned = {"params, grads, m, v (16 B a parameter)": 16.0 * n,
+                "the clipped copy or the updates (4 B a parameter)": 4.0 * n,
+                "one recomputed layer's blocked float32 attention (3 [1,H,512,512] float32 "
+                "a block pair)": 3.0 * 4 * cfg.n_heads * 512 * 512 * (TRAIN_SEQ // 512) ** 2,
+                "logits (bf16, float32, log-softmax, its gradient)": (2 + 4 * 3) * TRAIN_SEQ
+                * cfg.vocab}
+    say(f"train: {cfg.name} at full width and depth ({cfg.n_layers} layers, {n} parameters, "
+        f"{cfg.param_dtype} parameters, {cfg.compute_dtype} compute, remat {cfg.remat}); "
+        f"memory reckoned before the run: " + "; ".join(
+            f"{k} {v / 1e9:.2f} GB" for k, v in reckoned.items())
+        + f"; peak at most {sum(reckoned.values()) / 1e9:.2f} GB of "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    run = lm_train.build_run(cfg, "adamw", seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    stream = SyntheticStream(DataConfig(cfg.vocab, TRAIN_SEQ, 1, seed=SEED))
+    batches = [{k: v.to(dev) for k, v in stream.next_batch(i).items()}
+               for i in range(TRAIN_WARMUP + TRAIN_TIMED + 1)]
+    losses, times = [], []
+    for i, batch in enumerate(batches[:-1]):
+        ev, host, enq, (_, run.opt_state, metrics) = timed(
+            lambda: run.step_fn(run.params, run.opt_state, batch))  # noqa: B023
+        losses.append(float(metrics["loss"]))
+        require(np.isfinite(losses[-1]), f"train {cfg.name}: step {i} loss {losses[-1]}")
+        if i >= TRAIN_WARMUP:
+            times.append((ev, host, enq))
+    peak = torch.cuda.max_memory_allocated()
+    busy_ms, top, events = device_busy(
+        lambda: run.step_fn(run.params, run.opt_state, batches[-1]), 1)
+    require(all(bool(torch.isfinite(p).all()) for p in run.params.parameters()),
+            f"train {cfg.name}: non-finite parameters after {len(batches)} steps")
+    ln_v = float(np.log(cfg.vocab))
+    require(abs(losses[0] - ln_v) <= 0.25 * ln_v,
+            f"train {cfg.name}: step-0 loss {losses[0]} is not near ln V = {ln_v:.3f}")
+    bound = train_bound(cfg, TRAIN_SEQ)
+    ms = [t[0] for t in times]
+    say(f"train: {cfg.name} built on the card from seed {SEED} in {build_s:.1f} s; losses "
+        f"{', '.join(f'{x:.4f}' for x in losses)} (step 0 against ln V = {ln_v:.4f})")
+    say(f"train: {cfg.name} step (1x{TRAIN_SEQ} tokens): {', '.join(f'{m:.2f}' for m in ms)} ms "
+        f"by CUDA events ({TRAIN_TIMED} steps after {TRAIN_WARMUP} warm-up), host clock "
+        f"{', '.join(f'{t[1]:.2f}' for t in times)} ms, enqueue "
+        f"{', '.join(f'{t[2]:.2f}' for t in times)} ms; bound {bound['bound']:.2f} ms "
+        f"(6NT {bound['6NT']:.2f} + attention 6LT²d {bound['attention']:.2f} at 989 TFLOP/s, "
+        f"AdamW {ADAMW_BYTES} B/param {bound['adamw']:.2f} + clip {CLIP_BYTES} B/param "
+        f"{bound['clip']:.2f} at 3.35 TB/s; remat's recomputed forward would add "
+        f"{bound['remat']:.2f}) -> {bound['bound'] / min(ms):.1%} of the bound; "
+        f"{TRAIN_SEQ / (min(ms) * 1e-3):.0f} tokens/s; device busy "
+        f"{busy_text(busy_ms, times[-1][1], times[-1][2], events, top)}; peak memory "
+        f"{peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB, {held / 2**30:.2f} GiB of it held by "
+        f"earlier phases) ({smi})")
+    del run, batches
+    torch.cuda.empty_cache()
+    return {"step_ms": ms, "host_ms": [t[1] for t in times], "enqueue_ms": [t[2] for t in times],
+            "busy_ms": busy_ms, "device_events": events, "bound_ms": bound, "losses": losses,
+            "peak_gb": peak / 1e9}
+
+
+def train_restart(dev: torch.device) -> None:
+    """``train_loop`` at smoke size on the card with a fault injected at
+    step 7 and a checkpoint every 3 steps: it restores step 6 and runs to
+    the end; then a fresh run resumes from the last checkpoint."""
+    cfg = get_smoke_config("llama3_2_3b")
+    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4))
+    with tempfile.TemporaryDirectory() as d:
+        run = lm_train.build_run(cfg, "adamw-fast", seed=SEED, device=dev)
+        run, hist = lm_train.train_loop(run, stream, 10, ckpt_dir=d,
+                                        ft=FTConfig(checkpoint_every=3, max_restarts=1),
+                                        injector=FaultInjector({7}), log_every=1000)
+        steps_run = [h["step"] for h in hist]
+        require(run.step == 10 and steps_run == list(range(7)) + list(range(6, 10)),
+                f"train restart: steps {steps_run}")
+        require(store.latest_step(d) == 10, f"train restart: latest {store.latest_step(d)}")
+        again = lm_train.build_run(cfg, "adamw-fast", seed=SEED + 1, device=dev)
+        again, more = lm_train.train_loop(again, stream, 12, ckpt_dir=d,
+                                          ft=FTConfig(checkpoint_every=3), log_every=1000)
+        require([h["step"] for h in more] == [10, 11], "train restart: cold resume")
+        require(next(again.params.parameters()).device.type == dev.type, "train restart: device")
+    say(f"train: train_loop on the card ({cfg.name}): fault at step 7 restored step 6 and ran "
+        f"to step 10 (steps {steps_run}); a fresh run resumed at step 10; losses "
+        f"{hist[0]['loss']:.4f} -> {more[-1]['loss']:.4f}")
+
+
+def train_phase(dev: torch.device, smi: str) -> dict:
+    """The LM training path: every smoke arch and stablelm-3b at full width,
+    depth 2 in float32 on the card against the CPU, then stablelm-3b
+    trained at full width and depth, the fault-tolerant loop and
+    ``examples/torch_train_lm.py``.  No kernel of the port runs here: the
+    counts must stay 0."""
+    pim_bitserial.reset_launches()
+    pim_matmul.reset_launches()
+    for i, arch in enumerate(ARCHS):
+        cfg = f32_config(get_smoke_config(arch))
+        model_cpu = lm.init_params(cfg, SEED, "cpu")
+        train_matches_cpu(arch, cfg, model_cpu, copy.deepcopy(model_cpu).to(dev), TRAIN_SMOKE,
+                          dev, SEED + i)
+    cfg = dataclasses.replace(f32_config(get_config(TRAIN_ARCH)), n_layers=2)
+    model_card = lm.init_params(cfg, SEED, dev)
+    model_cpu = lm.init_params(cfg, SEED, "meta")
+    model_cpu.load_state_dict({k: v.to("cpu", copy=True)
+                               for k, v in model_card.state_dict().items()}, assign=True)
+    train_matches_cpu(f"{cfg.name} depth 2", cfg, model_cpu, model_card, TRAIN_UNIT, dev, SEED)
+    del model_card, model_cpu
+
+    result = train_timed(dev, smi)
+    train_restart(dev)
+    spec = importlib.util.spec_from_file_location(
+        "torch_train_lm", os.path.join(ROOT, "examples", "torch_train_lm.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    hist = example.main(["--device", str(dev)])
+    losses = [h["loss"] for h in hist]
+    require(np.mean(losses[-10:]) < np.mean(losses[:10]),
+            "examples/torch_train_lm.py: the loss did not go down")
+    say(f"train: examples/torch_train_lm.py on the card: {len(hist)} steps, loss "
+        f"{np.mean(losses[:10]):.4f} -> {np.mean(losses[-10:]):.4f} (means of the first and "
+        f"last 10), {np.mean([h['time_s'] for h in hist]) * 1e3:.1f} ms a step")
+    torch.cuda.synchronize()
+    launches = {**pim_bitserial.LAUNCHES,
+                **{f"pim_matmul/{k}": v for k, v in pim_matmul.LAUNCHES.items()}}
+    say(f"train: the port's kernel launches in the train phase {launches}")
+    require(not any(launches.values()), "the train phase launched a kernel of the port")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -987,6 +1207,10 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_phase(dev, smi)
     say(f"serve: phase took {time.perf_counter() - t0:.1f} s wall")
+    t0 = time.perf_counter()
+    trained = train_phase(dev, smi)
+    say(f"train: phase took {time.perf_counter() - t0:.1f} s wall; summary "
+        f"{json.dumps(trained)}")
 
     sources = {  # name: (source, TPU kernel, library, kernel symbol, reported case)
         "bitserial_loop": ("src/repro_torch/kernels/csrc/bitserial_loop.cu",

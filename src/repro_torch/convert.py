@@ -6,10 +6,10 @@ runs through the port's executors unchanged (separating compiler faults
 from executor faults).  ``planes_from_numpy``/``planes_to_numpy`` convert
 uint32 bit-planes to and from the port's int32 carrier, bit for bit.
 ``cnn_state_dict`` turns a reference CNN's parameter tree into the port
-model's ``state_dict``; ``lm_params`` and ``lm_caches`` do the same for the
-LM substrate's parameters and serving caches, unstacking the reference's
-``units`` (stacked over repeats of the layer pattern) plus ``tail`` into
-the port's flat per-layer order.
+model's ``state_dict``; ``lm_params``, ``lm_opt_state`` and ``lm_caches`` do
+the same for the LM substrate's parameters, optimizer state and serving
+caches, unstacking the reference's ``units`` (stacked over repeats of the
+layer pattern) plus ``tail`` into the port's flat per-layer order.
 """
 
 from __future__ import annotations
@@ -161,12 +161,65 @@ def lm_params(params: dict, cfg) -> dict[str, torch.Tensor]:
     exactly the model's."""
     from repro_torch.models import transformer
 
-    flat = {f"embed.{k}": _as_numpy(v) for k, v in _leaves(params["embed"])}
-    flat["final_norm"] = _as_numpy(params["final_norm"])
-    for i, layer in enumerate(_per_layer(params, cfg)):
-        flat.update({f"layers.{i}.{k}": v for k, v in layer.items()})
     want = transformer.Transformer(cfg, device="meta").state_dict()
-    return _to_torch(flat, want, f"{cfg.name}: parameters")
+    return _to_torch(_lm_flat(params, cfg), want, f"{cfg.name}: parameters")
+
+
+def _lm_flat(tree: dict, cfg) -> dict[str, np.ndarray]:
+    """A tree shaped like the reference's parameters (``embed``,
+    ``final_norm``, ``units``, ``tail``; each parameter may be a dict of
+    state leaves) as one flat dict keyed like the port's ``state_dict``."""
+    flat = {k: _as_numpy(v) for k, v in _leaves(
+        {"embed": tree["embed"], "final_norm": tree["final_norm"]})}
+    for i, layer in enumerate(_per_layer(tree, cfg)):
+        flat.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    return flat
+
+
+def _unfactor_vectors(node):
+    """A unit's Adafactor state with each stacked vector's ``{vr [n],
+    vc [d]}`` replaced by ``{v [n, d]}``: the reference's denominator, in
+    float32, with the reference Adafactor's default eps (1e-30)."""
+    if isinstance(node, dict) and "vr" in node and np.ndim(node["vr"]) == 1:
+        vr, vc = np.asarray(node["vr"], np.float32), np.asarray(node["vc"], np.float32)
+        return {"v": vr[:, None] * vc[None, :] / np.maximum(vr.mean(), np.float32(1e-30))}
+    if isinstance(node, dict):
+        return {k: _unfactor_vectors(v) for k, v in node.items()}
+    return node
+
+
+def lm_opt_state(opt_state: dict, cfg) -> dict:
+    """The reference's optimizer state for ``cfg``'s parameters (numpy
+    leaves) as the port's, on the CPU: AdamW's ``m``/``v`` (stacked over
+    ``units``, plus ``tail``) unstacked by parameter name as ``lm_params``
+    unstacks parameters, or Adafactor's ``s`` per parameter, and ``step``.
+    The reference stacks each unit's layers, so it factors a stacked vector
+    (a norm) over the layers where the port keeps a whole ``v`` per layer:
+    that ``v`` is the reference's own estimate for the layer,
+    vr[i]·vc / max(mean(vr), eps).  Raises ``ValueError`` unless every key
+    and shape is the port optimizer's."""
+    from repro_torch.models import transformer
+    from repro_torch.optim import adafactor
+
+    step = torch.tensor(int(np.asarray(opt_state["step"])), dtype=torch.int32)
+    params = transformer.Transformer(cfg, device="meta").state_dict()
+    if "m" in opt_state:
+        want = {k: torch.empty(p.shape, dtype=torch.float32, device="meta")
+                for k, p in params.items()}
+        moments = {name: _to_torch(_lm_flat(opt_state[name], cfg), want,
+                                   f"{cfg.name}: AdamW {name}") for name in ("m", "v")}
+        return {**moments, "step": step}
+    s = opt_state["s"]
+    units = [_unfactor_vectors(u) for u in s["units"]]
+    flat = _lm_flat({**s, "units": units}, cfg)
+    want = {f"{name}.{leaf}": t for name, state in adafactor().init(params)["s"].items()
+            for leaf, t in state.items()}
+    got = _to_torch(flat, want, f"{cfg.name}: Adafactor state")
+    out: dict[str, dict] = {}
+    for key, t in got.items():
+        name, leaf = key.rsplit(".", 1)
+        out.setdefault(name, {})[leaf] = t
+    return {"s": out, "step": step}
 
 
 def lm_caches(caches: dict, cfg, batch: int, seq_len: int, device=None) -> list[dict]:

@@ -68,15 +68,12 @@ class ServeEngine:
         cross = None if cross_embeds is None else torch.as_tensor(cross_embeds).to(dev)
         logits, caches = self.prefill_fn(self.params, tokens, caches, cross)
         generator = torch.Generator(device=dev).manual_seed(seed)
-        out, seen = [tokens], [logits]
-        tok = _sample(logits, generator, temperature)
+        out, seen = [tokens], []
         for i in range(gen_len):
-            out.append(tok)
-            if i == gen_len - 1:
-                break
-            logits, caches = self.decode_fn(self.params, tok, P + i, caches, cross)
+            if i:
+                logits, caches = self.decode_fn(self.params, out[-1], P + i - 1, caches, cross)
             seen.append(logits)
-            tok = _sample(logits, generator, temperature)
+            out.append(_sample(logits, generator, temperature))
         out = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
         return (out, seen) if return_logits else out
 

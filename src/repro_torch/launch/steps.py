@@ -1,8 +1,11 @@
-"""Step-function factories and analytic sizing shared by the serving engine
-(the serving half of the reference's ``launch/steps.py``).
+"""Step-function factories and analytic sizing shared by the train and
+serve drivers.
 
-Shapes come from the ``meta`` device: building the model or its caches
-there allocates nothing, the port's counterpart of ``jax.eval_shape``.
+Steps run eagerly: the train step takes the model (``nn.Module``), the
+optimizer state and a batch, and updates the parameters in place.  Shapes
+come from the ``meta`` device: building the model, its caches or its
+optimizer state there allocates nothing, the port's counterpart of
+``jax.eval_shape``.
 """
 
 from __future__ import annotations
@@ -13,6 +16,50 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.models import transformer as tfm
+from repro_torch.optim import adafactor, adamw, clip_by_global_norm, warmup_cosine
+from repro_torch.optim.adamw import apply_updates
+
+
+def choose_optimizer(cfg: ModelConfig, name: str = "auto"):
+    """Memory plan: models above 1e11 parameters train with Adafactor,
+    everything else with AdamW."""
+    if name == "auto":
+        name = "adafactor" if cfg.param_count() > 1e11 else "adamw"
+    if name == "adamw":
+        return name, adamw(lr=warmup_cosine(3e-4, 200, 10000), weight_decay=0.1)
+    if name == "adamw-fast":
+        # smoke/example scale: flat high lr, no decay
+        return name, adamw(lr=3e-3, weight_decay=0.0)
+    if name == "adafactor":
+        return name, adafactor(lr=1e-2)
+    raise ValueError(name)
+
+
+def loss_and_grads(params: tfm.Transformer, batch: dict, cfg: ModelConfig):
+    """``loss_fn`` and its backward → (loss, metrics, grads), detached;
+    grads by parameter name (zeros where a parameter took no part).  The
+    ``.grad`` fields are left empty, so the caller owns the only copy."""
+    params.zero_grad(set_to_none=True)
+    loss, metrics = tfm.loss_fn(params, batch, cfg)
+    loss.backward()
+    grads = {}
+    for k, p in params.named_parameters():
+        grads[k] = torch.zeros_like(p) if p.grad is None else p.grad
+        p.grad = None
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def make_train_step(cfg: ModelConfig, optimizer, *, grad_clip: float = 1.0):
+    def train_step(params, opt_state, batch):
+        loss, metrics, grads = loss_and_grads(params, batch, cfg)
+        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+        named = dict(params.named_parameters())
+        updates, opt_state = optimizer.update(grads, opt_state, named)
+        del grads
+        apply_updates(named, updates)
+        return params, opt_state, {**metrics, "loss": loss, "grad_norm": gnorm}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig):
@@ -42,6 +89,12 @@ def param_shapes(cfg: ModelConfig) -> dict[str, torch.Tensor]:
 
 def cache_shapes(cfg: ModelConfig, batch: int, seq_len: int) -> list[dict]:
     return tfm.init_caches(cfg, batch, seq_len, device="meta")
+
+
+def opt_state_shapes(optimizer, params_shapes: dict) -> dict:
+    """The optimizer state for ``params_shapes`` (``meta`` tensors) as
+    ``meta`` tensors — no allocation."""
+    return optimizer.init(params_shapes)
 
 
 def estimate_residency(

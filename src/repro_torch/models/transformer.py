@@ -4,15 +4,22 @@ The model is a flat ``nn.ModuleList`` of per-layer modules in
 ``cfg.layer_kinds()`` order — the reference groups them into stacked
 ``units`` plus a ``tail`` for ``lax.scan``; ``repro_torch.convert.lm_params``
 unstacks its trees into this order.  Every layer kind returns an optional
-cache entry, so the same assembly serves the forward pass, prefill and
-decode.  ``remat`` and ``unroll_layers`` steer the reference's training
-graph and XLA's scan; eager PyTorch serving has neither and ignores them.
+cache entry, so the same assembly serves training, prefill and decode.
+``remat`` ("full" or "dots") checkpoints each layer of the repeating units
+when gradients are taken (``torch.utils.checkpoint``, non-reentrant), as
+the reference checkpoints its scanned unit; the tail layers, prefill and
+decode run without it.  ``unroll_layers`` steers XLA's scan, which eager
+PyTorch has not, and is ignored.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.pim.frontend import resolve_device
@@ -142,6 +149,29 @@ def apply_layer(
     raise ValueError(kind)
 
 
+# ------------------------------------------------------------------ remat
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable``: keep the outputs of products
+    with no batch dimension, recompute everything else."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(cfg: ModelConfig):
+    """``apply_layer`` under ``cfg.remat``'s checkpoint, or None for "none"."""
+    if cfg.remat == "none":
+        return None
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, apply_layer, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, apply_layer, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat must be none, full or dots, got {cfg.remat!r}")
+
+
 # ----------------------------------------------------------------- forward
 
 def _trunk(params: Transformer, tokens, cfg: ModelConfig, *, cross_embeds, caches,
@@ -156,8 +186,10 @@ def _trunk(params: Transformer, tokens, cfg: ModelConfig, *, cross_embeds, cache
         positions = torch.arange(T, dtype=torch.int32, device=dev) + start_pos
     lb = torch.zeros((), dtype=torch.float32, device=dev)
     new_caches = None if caches is None else []
+    remat = _remat(cfg) if caches is None and torch.is_grad_enabled() else None
     for i, layer in enumerate(params.layers):
-        x, nc, aux = apply_layer(
+        run = remat if remat is not None and i < cfg.n_units * len(cfg.unit) else apply_layer
+        x, nc, aux = run(
             layer, x, layer.kind, cfg, positions, cross_embeds=cross_embeds,
             cache=None if caches is None else caches[i], decode_pos=decode_pos,
         )
@@ -183,6 +215,22 @@ def forward(
     x, aux, new_caches = _trunk(params, tokens, cfg, cross_embeds=cross_embeds,
                                 caches=caches, decode_pos=decode_pos, start_pos=start_pos)
     return lm_head(params.embed, x, cfg), aux, new_caches
+
+
+# ------------------------------------------------------------------- loss
+
+def loss_fn(params: Transformer, batch: dict, cfg: ModelConfig, lb_coef: float = 0.01):
+    """Mean next-token cross-entropy over the labels that are not negative
+    (log-softmax in float32), plus ``lb_coef`` × the MoE load-balance loss.
+    → (loss, {"ce", "load_balance_loss"})."""
+    logits, aux, _ = forward(params, batch["tokens"], cfg, cross_embeds=batch.get("cross_embeds"))
+    labels = batch["labels"]
+    valid = (labels >= 0).float()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    ce = -(ll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+    loss = ce + lb_coef * aux["load_balance_loss"]
+    return loss, {"ce": ce, **aux}
 
 
 # ----------------------------------------------------------------- serving

@@ -245,3 +245,45 @@ def test_serve_on_card_matches_cpu(cuda, arch):
     a = engine.generate(prompts, 8, temperature=0.0)
     assert np.array_equal(a, engine.generate(prompts, 8, temperature=0.0))
     assert np.array_equal(a[:, :12], prompts)
+
+
+@pytest.mark.parametrize("arch", ["stablelm_3b", "mamba2_780m", "deepseek_moe_16b"])
+def test_train_step_on_card_matches_cpu(cuda, arch):
+    """A smoke LM in float32 (TF32 off): the loss and every gradient of one
+    batch on the card against the same weights on the CPU (loss within
+    1e-5 relative, each gradient within 1e-4 of its largest), then one
+    AdamW train step on each (loss and gradient norm within 1e-5), and the
+    next batch's loss after it within 1e-4 (Adam turns a tiny gradient
+    difference on a near-zero gradient into an lr-sized update)."""
+    import copy
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as lm
+
+    from benchmarks.torch_fig6_cnn_infer import full_precision
+
+    cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32",
+                              compute_dtype="float32")
+    model = lm.init_params(cfg, 0, "cpu")
+    card = copy.deepcopy(model).to(cuda)
+    stream = SyntheticStream(DataConfig(cfg.vocab, 16, 2, seed=3))
+    runs = []
+    with full_precision():
+        for m, dev in ((model, torch.device("cpu")), (card, cuda)):
+            batches = [{k: v.to(dev) for k, v in stream.next_batch(i).items()} for i in (0, 1)]
+            loss, _, grads = steps.loss_and_grads(m, batches[0], cfg)
+            _, opt = steps.choose_optimizer(cfg, "adamw-fast")
+            step = steps.make_train_step(cfg, opt)
+            _, state, metrics = step(m, opt.init(dict(m.named_parameters())), batches[0])
+            after, _, _ = steps.loss_and_grads(m, batches[1], cfg)
+            runs.append((float(loss), {k: g.cpu() for k, g in grads.items()},
+                         {k: float(v) for k, v in metrics.items()}, float(after)))
+    (want, want_g, want_m, want_after), (got, got_g, got_m, got_after) = runs
+    assert abs(got - want) <= 1e-5 * abs(want)
+    for k, w in want_g.items():
+        assert float((got_g[k] - w).abs().max()) <= 1e-4 * float(w.abs().max()), k
+    for k in ("loss", "grad_norm"):
+        assert abs(got_m[k] - want_m[k]) <= 1e-5 * abs(want_m[k]), k
+    assert abs(got_after - want_after) <= 1e-4 * abs(want_after)

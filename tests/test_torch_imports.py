@@ -1,6 +1,7 @@
 """The port stands alone: importing ``repro_torch`` and every submodule
 (the LM substrate's ``configs``, ``models.{layers,attention,moe,ssm,rglru,
-transformer}`` and ``launch.{steps,serve}`` among them), the port's
+transformer}``, ``launch.{steps,serve,train}``, ``optim``, ``data``,
+``checkpoint`` and ``runtime`` among them), the port's
 benchmarks ``benchmarks/torch_*.py``, the examples ``examples/torch_*.py``
 or ``chip_smoke.py`` loads neither JAX, ml_dtypes nor the reference
 package."""
@@ -41,10 +42,12 @@ def test_port_imports_no_jax_and_no_reference():
                           text=True, timeout=120, env=env)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 55  # 44 modules of repro_torch, 11 benchmarks
+    assert n_modules >= 67  # 56 modules of repro_torch, 11 benchmarks
     for name in ("configs", "configs.gemma2_27b", "models.layers", "models.attention",
                  "models.moe", "models.ssm", "models.rglru", "models.transformer",
-                 "launch.steps", "launch.serve"):
+                 "launch.steps", "launch.serve", "launch.train", "optim", "optim.adamw",
+                 "optim.adafactor", "optim.clip", "optim.schedule", "data.pipeline",
+                 "checkpoint.store", "runtime.fault_tolerance"):
         assert f"repro_torch.{name}" in proc.stdout, name
 
 
@@ -60,7 +63,7 @@ def _port_sources():
 def test_port_sources_name_no_jax_import():
     paths = list(_port_sources())
     assert sum("benchmarks" in p for p in paths) >= 11
-    assert sum("examples" in p for p in paths) == 2
+    assert sum("examples" in p for p in paths) == 3
     for path in paths:
         text = open(path).read()
         for banned in ("import jax", "from jax", "import ml_dtypes",

@@ -256,6 +256,21 @@ def test_generate_returns_the_logits_each_token_was_drawn_from():
     np.testing.assert_array_equal(out, engine.generate(prompts, 5, temperature=0.0))
 
 
+@pytest.mark.parametrize("gen_len", [0, 1, 3])
+def test_generate_returns_exactly_gen_len_logits(gen_len):
+    """``gen_len`` tokens and ``gen_len`` logits, none at 0 (the prompts
+    come back as they are); the tokens are a prefix of a longer run's."""
+    cfg = f32(get_smoke_config("stablelm_3b"))
+    engine = serve.ServeEngine(cfg, T.init_params(cfg, 0, "cpu"), P + 3, torch.device("cpu"))
+    prompts, _ = inputs(cfg, B, P, seed=4)
+    out, logits = engine.generate(prompts, gen_len, temperature=0.0, return_logits=True)
+    assert out.shape == (B, P + gen_len) and len(logits) == gen_len
+    np.testing.assert_array_equal(out[:, :P], prompts)
+    np.testing.assert_array_equal(out, engine.generate(prompts, 3, temperature=0.0)[:, :P + gen_len])
+    for i, lg in enumerate(logits):
+        np.testing.assert_array_equal(out[:, P + i], lg.argmax(-1).numpy())
+
+
 def test_serve_decode_example_on_the_cpu(capsys):
     spec = importlib.util.spec_from_file_location(
         "torch_serve_decode", os.path.join(ROOT, "examples", "torch_serve_decode.py"))
