@@ -48,10 +48,24 @@ then gemma2-27b at full width and depth (``serve_config``: bf16,
 prefill and decode time by CUDA events, the host clock and the enqueue
 time beside its bound, device-busy time, peak memory, decode parity
 (prefill P−1 plus a decode step against prefill P) and the Fig 8 verdict;
-then ``examples/torch_serve_decode.py`` on the card.  It prints one JSON
-line of kernels, with the registers and stack frame of each read from the
-built library, and, last, ``{"ok": true, "device": {...}}``.  Any failed check raises;
-nothing falls back to the CPU or to a plain version.  Imports nothing of
+then ``examples/torch_serve_decode.py`` on the card.  The LM training
+phase follows, its counts also set to 0 before it and required 0 after:
+each smoke arch in float32, and stablelm-3b at full width and depth 2 on
+2×128 tokens, take the loss and every gradient of one batch and one AdamW
+step on the card and on the CPU from the same weights (loss within
+``TRAIN_LOSS_RTOL``, each gradient within ``SERVE_TOL`` of its largest);
+stablelm-3b at full width and depth (float32 parameters, bf16 compute,
+``remat="full"``, AdamW, clip 1.0) trains on one 4096-token sequence a step,
+one warm-up and three timed steps by CUDA events, the host clock and the
+enqueue time beside the step's bound (``train_bound``), with device-busy
+time, peak memory (reckoned before the run, then measured) and the loss
+near ln V at step 0; then ``train_loop`` with an injected fault resumes
+from its checkpoint, a fresh run resumes cold, and
+``examples/torch_train_lm.py`` trains on the card with its loss going
+down.  It prints one JSON line of kernels, with the registers and stack
+frame of each read from the built library, and, last, ``{"ok": true,
+"device": {...}}``.  Any failed check raises; nothing falls back to the CPU
+or to a plain version.  Imports nothing of
 JAX.
 """
 
@@ -394,16 +408,20 @@ def cnn_logits_check(dev: torch.device) -> None:
         del model, ref_model, card
 
 
-def device_busy(step, reps: int) -> tuple[float, list[tuple[str, float]], float]:
+def device_busy(step, reps: int, host_ops: bool = True
+                ) -> tuple[float, list[tuple[str, float]], float]:
     """Device time of ``reps`` calls of ``step`` per call — the sum over the
     device-side events (kernels, copies, sets) ``torch.profiler`` saw, not
     over the host ops that launched them (0.0 if it saw none) — the three
     device events that took most of it (name, ms per call), and the device
-    events per call."""
+    events per call.  ``host_ops=False`` records the device activity alone,
+    which a call of some 10^5 launches needs to be profiled in reasonable
+    time (the sums read the device events either way)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
@@ -960,8 +978,10 @@ def train_timed(dev: torch.device, smi: str) -> dict:
         if i >= TRAIN_WARMUP:
             times.append((ev, host, enq))
     peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
     busy_ms, top, events = device_busy(
-        lambda: run.step_fn(run.params, run.opt_state, batches[-1]), 1)
+        lambda: run.step_fn(run.params, run.opt_state, batches[-1]), 1, host_ops=False)
+    profile_s = time.perf_counter() - t0
     require(all(bool(torch.isfinite(p).all()) for p in run.params.parameters()),
             f"train {cfg.name}: non-finite parameters after {len(batches)} steps")
     ln_v = float(np.log(cfg.vocab))
@@ -980,7 +1000,8 @@ def train_timed(dev: torch.device, smi: str) -> dict:
         f"{bound['clip']:.2f} at 3.35 TB/s; remat's recomputed forward would add "
         f"{bound['remat']:.2f}) -> {bound['bound'] / min(ms):.1%} of the bound; "
         f"{TRAIN_SEQ / (min(ms) * 1e-3):.0f} tokens/s; device busy "
-        f"{busy_text(busy_ms, times[-1][1], times[-1][2], events, top)}; peak memory "
+        f"{busy_text(busy_ms, times[-1][1], times[-1][2], events, top)} (profiled in "
+        f"{profile_s:.1f} s); peak memory "
         f"{peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB, {held / 2**30:.2f} GiB of it held by "
         f"earlier phases) ({smi})")
     del run, batches

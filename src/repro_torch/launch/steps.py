@@ -55,7 +55,7 @@ def make_train_step(cfg: ModelConfig, optimizer, *, grad_clip: float = 1.0):
         grads, gnorm = clip_by_global_norm(grads, grad_clip)
         named = dict(params.named_parameters())
         updates, opt_state = optimizer.update(grads, opt_state, named)
-        del grads
+        del grads  # the clipped copy (4 B a parameter) goes before the updates are added
         apply_updates(named, updates)
         return params, opt_state, {**metrics, "loss": loss, "grad_norm": gnorm}
 

@@ -21,7 +21,8 @@ def _tree():
     return {
         "params": {"layers.0.attn.wq": rng.standard_normal((3, 4)).astype(np.float32),
                    "embed.tok": rng.standard_normal((5, 2)).astype(np.float32)},
-        "opt_state": {"m": [rng.standard_normal(2).astype(np.float32), np.arange(3, dtype=np.int64)],
+        "opt_state": {"m": [rng.standard_normal(2).astype(np.float32),
+                            np.arange(3, dtype=np.int64)],
                       "step": np.asarray(7, np.int32)},
         "step": np.asarray(3, np.int32),
     }

@@ -8,7 +8,6 @@ Adafactor's means and the clip may take another order).  Also
 ``choose_optimizer``, ``opt_state_shapes`` and twins of
 ``tests/test_substrate.py``'s optimizer tests."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest

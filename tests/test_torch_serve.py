@@ -266,7 +266,8 @@ def test_generate_returns_exactly_gen_len_logits(gen_len):
     out, logits = engine.generate(prompts, gen_len, temperature=0.0, return_logits=True)
     assert out.shape == (B, P + gen_len) and len(logits) == gen_len
     np.testing.assert_array_equal(out[:, :P], prompts)
-    np.testing.assert_array_equal(out, engine.generate(prompts, 3, temperature=0.0)[:, :P + gen_len])
+    longer = engine.generate(prompts, 3, temperature=0.0)
+    np.testing.assert_array_equal(out, longer[:, :P + gen_len])
     for i, lg in enumerate(logits):
         np.testing.assert_array_equal(out[:, P + i], lg.argmax(-1).numpy())
 
