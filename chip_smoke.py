@@ -56,7 +56,7 @@ step on the card and on the CPU from the same weights (loss within
 ``TRAIN_LOSS_RTOL``, each gradient within ``SERVE_TOL`` of its largest);
 stablelm-3b at full width and depth (float32 parameters, bf16 compute,
 ``remat="full"``, AdamW, clip 1.0) trains on one 4096-token sequence a step,
-one warm-up and three timed steps by CUDA events, the host clock and the
+one warm-up and two timed steps by CUDA events, the host clock and the
 enqueue time beside the step's bound (``train_bound``), with device-busy
 time, peak memory (reckoned before the run, then measured) and the loss
 near ln V at step 0; then ``train_loop`` with an injected fault resumes
@@ -154,7 +154,7 @@ TRAIN_UNIT = (2, 128)  # the same for stablelm-3b at full width, depth 2
 # step (its global batch of 256 cut to 1: one card, no accumulation).
 TRAIN_ARCH = "stablelm_3b"
 TRAIN_SEQ = SHAPES["train_4k"].seq_len
-TRAIN_WARMUP, TRAIN_TIMED = 1, 3
+TRAIN_WARMUP, TRAIN_TIMED = 1, 2  # two timed steps keep the whole script near 6 minutes
 # Bytes a parameter: AdamW reads p, g, m, v and writes p, m, v (float32);
 # clipping reads g for the norm, then reads g and writes the scaled copy.
 ADAMW_BYTES, CLIP_BYTES = 28, 12

@@ -16,6 +16,16 @@ from repro_torch.core import ir
 BASIS = "dram"
 
 
+@pytest.fixture(autouse=True)
+def fresh_compile_caches(monkeypatch):
+    """Both sides compile anew in each test.  The compile caches key a bf16
+    op without its width, so an entry another test file made at 16 bits on
+    one side only would bring its schedule key ("bf16_add/16@...") into the
+    comparison."""
+    monkeypatch.setattr(ir, "_COMPILE_CACHE", {})
+    monkeypatch.setattr(ref_ir, "_COMPILE_CACHE", {})
+
+
 @pytest.mark.parametrize("op,nbits", OP_CASES)
 def test_compiled_op_matches_reference(op, nbits):
     port = ir.compile_op(op, nbits, basis=BASIS)
