@@ -148,6 +148,15 @@ SERVE_BUSY_REPS = 3
 # The LM training phase.  Card against CPU in float32: the loss within
 # TRAIN_LOSS_RTOL relative, every gradient within SERVE_TOL x its largest.
 TRAIN_LOSS_RTOL = 1e-5
+# At the archs' default dtypes (float32 parameters, bf16 compute, remat
+# "full"), card against CPU from the same weights: the loss within
+# TRAIN_BF16_LOSS_RTOL relative, every gradient within TRAIN_BF16_TOL x its
+# largest; the control, bf16 on the card against float32 on the CPU, within
+# TRAIN_BF16_TOL too.  bf16 against float32 on the CPU, the ten smoke archs
+# on 2 x 16 tokens: gradients 2.2 - 6.9 % of their largest, losses 2.8e-5 -
+# 4.3e-4 relative (PERF.md).
+TRAIN_BF16_TOL = 0.1
+TRAIN_BF16_LOSS_RTOL = 2e-3
 TRAIN_SMOKE = (2, 16)  # batch, tokens: each smoke arch
 TRAIN_UNIT = (2, 128)  # the same for stablelm-3b at full width, depth 2
 # stablelm-3b at full width and depth: one sequence of train_4k's length a
@@ -408,20 +417,17 @@ def cnn_logits_check(dev: torch.device) -> None:
         del model, ref_model, card
 
 
-def device_busy(step, reps: int, host_ops: bool = True
-                ) -> tuple[float, list[tuple[str, float]], float]:
+def device_busy(step, reps: int) -> tuple[float, list[tuple[str, float]], float]:
     """Device time of ``reps`` calls of ``step`` per call — the sum over the
-    device-side events (kernels, copies, sets) ``torch.profiler`` saw, not
-    over the host ops that launched them (0.0 if it saw none) — the three
-    device events that took most of it (name, ms per call), and the device
-    events per call.  ``host_ops=False`` records the device activity alone,
-    which a call of some 10^5 launches needs to be profiled in reasonable
-    time (the sums read the device events either way)."""
+    device-side events (kernels, copies, sets) ``torch.profiler`` saw (0.0
+    if it saw none) — the three device events that took most of it (name,
+    ms per call), and the device events per call.  It records the device
+    activity alone: the host ops are not traced, which keeps a call of some
+    10^5 launches quick to profile."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
-    with profile(activities=activities) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
@@ -923,19 +929,67 @@ def train_matches_cpu(label: str, cfg, model_cpu, model_card, shape, dev, seed: 
         f"{card_s:.1f} s card")
 
 
+def bf16_train_matches_cpu(label: str, cfg, model_cpu, model_card, shape, dev,
+                           seed: int) -> dict:
+    """At the arch's default dtypes (bf16 compute, ``remat`` as configured):
+    the loss and every gradient of one batch on the card against the same
+    weights on the CPU, within ``TRAIN_BF16_LOSS_RTOL`` and
+    ``TRAIN_BF16_TOL`` x each gradient's largest; and the control, the
+    card's bf16 gradients against float32 compute on the CPU, within
+    ``TRAIN_BF16_TOL``.  Returns the worst readings."""
+    cpu = torch.device("cpu")
+    runs = {}
+    for key, model, d, c in (("cpu", model_cpu, cpu, cfg), ("card", model_card, dev, cfg),
+                             ("cpu_f32", model_cpu, cpu, f32_config(cfg))):
+        loss, _, grads = lm_steps.loss_and_grads(model, train_batch(c, shape, seed, d), c)
+        runs[key] = (float(loss), {k: g.double().cpu() for k, g in grads.items()})
+        del grads
+
+    def worst(got, want):
+        errs = {k: float((got[k] - w).abs().max() / w.abs().max().clamp(min=1e-30))
+                for k, w in want.items()}
+        k = max(errs, key=errs.get)
+        return errs[k], k
+
+    (want_loss, want), (loss, got), (f32_loss, f32) = runs["cpu"], runs["card"], runs["cpu_f32"]
+    require(np.isfinite(loss) and all(bool(torch.isfinite(g).all()) for g in got.values()),
+            f"train {label} bf16: non-finite loss or gradients")
+    read = {"loss": abs(loss - want_loss) / abs(want_loss), "grad": worst(got, want),
+            "control": worst(got, f32), "cpu_control": worst(want, f32),
+            "loss_control": abs(want_loss - f32_loss) / abs(f32_loss)}
+    say(f"train: {label} at default dtypes ({cfg.compute_dtype} compute, {cfg.param_dtype} "
+        f"parameters, remat {cfg.remat}), {shape[0]}x{shape[1]} tokens, card against the CPU: "
+        f"loss {loss:.6f} within {read['loss']:.3g} (bound {TRAIN_BF16_LOSS_RTOL}); "
+        f"{len(want)} gradients within {read['grad'][0]:.4g} x their largest (worst "
+        f"{read['grad'][1]}; bound {TRAIN_BF16_TOL}); control, card bf16 against CPU float32: "
+        f"{read['control'][0]:.4g} (worst {read['control'][1]}), CPU bf16 against CPU float32 "
+        f"{read['cpu_control'][0]:.4g} (worst {read['cpu_control'][1]}), loss "
+        f"{read['loss_control']:.3g}")
+    require(read["loss"] <= TRAIN_BF16_LOSS_RTOL, f"train {label} bf16: loss {loss} on the "
+            f"card, {want_loss} on the CPU")
+    require(read["grad"][0] <= TRAIN_BF16_TOL, f"train {label} bf16: gradient "
+            f"{read['grad'][1]} off the CPU's by {read['grad'][0]:.4g} x its largest")
+    require(read["control"][0] <= TRAIN_BF16_TOL, f"train {label} bf16: gradient "
+            f"{read['control'][1]} off float32 by {read['control'][0]:.4g} x its largest")
+    return {k: v[0] if isinstance(v, tuple) else v for k, v in read.items()}
+
+
 def train_bound(cfg, T: int) -> dict:
     """Least time for one training step on ``T`` tokens, in ms, term by
     term: 6·N·T FLOPs and causal attention's forward and backward
     (6·L·T²·d) at the bf16 peak, AdamW's and clipping's bytes at 3.35 TB/s,
-    and, apart, the forward that ``remat="full"`` recomputes."""
+    and, apart, the forward that ``remat="full"`` recomputes.  N in the
+    products leaves out an untied input embedding, a lookup that multiplies
+    nothing; AdamW and clipping move every parameter's bytes."""
     n, L, d = cfg.param_count(), cfg.n_layers, cfg.d_model
-    terms = {"6NT": 6.0 * n * T / BF16_TENSOR_FLOPS,
+    n_mm = n - (0 if cfg.tie_embeddings else cfg.vocab * d)
+    terms = {"6NT": 6.0 * n_mm * T / BF16_TENSOR_FLOPS,
              "attention": 6.0 * L * T * T * d / BF16_TENSOR_FLOPS,
              "adamw": ADAMW_BYTES * n / HBM_BYTES_PER_S,
              "clip": CLIP_BYTES * n / HBM_BYTES_PER_S}
     terms = {k: v * 1e3 for k, v in terms.items()}
     terms["bound"] = sum(terms.values())
-    terms["remat"] = (2.0 * n * T + 2.0 * L * T * T * d) / BF16_TENSOR_FLOPS * 1e3
+    terms["remat"] = (2.0 * n_mm * T + 2.0 * L * T * T * d) / BF16_TENSOR_FLOPS * 1e3
     return terms
 
 
@@ -980,7 +1034,7 @@ def train_timed(dev: torch.device, smi: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
     busy_ms, top, events = device_busy(
-        lambda: run.step_fn(run.params, run.opt_state, batches[-1]), 1, host_ops=False)
+        lambda: run.step_fn(run.params, run.opt_state, batches[-1]), 1)
     profile_s = time.perf_counter() - t0
     require(all(bool(torch.isfinite(p).all()) for p in run.params.parameters()),
             f"train {cfg.name}: non-finite parameters after {len(batches)} steps")
@@ -1044,18 +1098,25 @@ def train_phase(dev: torch.device, smi: str) -> dict:
     counts must stay 0."""
     pim_bitserial.reset_launches()
     pim_matmul.reset_launches()
+    bf16 = {}
     for i, arch in enumerate(ARCHS):
-        cfg = f32_config(get_smoke_config(arch))
+        cfg = get_smoke_config(arch)  # float32 parameters: one model serves both checks
         model_cpu = lm.init_params(cfg, SEED, "cpu")
-        train_matches_cpu(arch, cfg, model_cpu, copy.deepcopy(model_cpu).to(dev), TRAIN_SMOKE,
-                          dev, SEED + i)
-    cfg = dataclasses.replace(f32_config(get_config(TRAIN_ARCH)), n_layers=2)
+        model_card = copy.deepcopy(model_cpu).to(dev)
+        bf16[arch] = bf16_train_matches_cpu(arch, cfg, model_cpu, model_card, TRAIN_SMOKE, dev,
+                                            SEED + i)
+        train_matches_cpu(arch, f32_config(cfg), model_cpu, model_card, TRAIN_SMOKE, dev,
+                          SEED + i)
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2)
     model_card = lm.init_params(cfg, SEED, dev)
     model_cpu = lm.init_params(cfg, SEED, "meta")
     model_cpu.load_state_dict({k: v.to("cpu", copy=True)
                                for k, v in model_card.state_dict().items()}, assign=True)
-    train_matches_cpu(f"{cfg.name} depth 2", cfg, model_cpu, model_card, TRAIN_UNIT, dev, SEED)
+    label = f"{cfg.name} depth 2"
+    bf16[label] = bf16_train_matches_cpu(label, cfg, model_cpu, model_card, TRAIN_UNIT, dev, SEED)
+    train_matches_cpu(label, f32_config(cfg), model_cpu, model_card, TRAIN_UNIT, dev, SEED)
     del model_card, model_cpu
+    say(f"train: bf16 card against CPU, worst readings {json.dumps(bf16)}")
 
     result = train_timed(dev, smi)
     train_restart(dev)
@@ -1075,7 +1136,7 @@ def train_phase(dev: torch.device, smi: str) -> dict:
                 **{f"pim_matmul/{k}": v for k, v in pim_matmul.LAUNCHES.items()}}
     say(f"train: the port's kernel launches in the train phase {launches}")
     require(not any(launches.values()), "the train phase launched a kernel of the port")
-    return result
+    return {**result, "smoke_bf16_worst": bf16}
 
 
 def main() -> int:

@@ -176,28 +176,15 @@ def _lm_flat(tree: dict, cfg) -> dict[str, np.ndarray]:
     return flat
 
 
-def _unfactor_vectors(node):
-    """A unit's Adafactor state with each stacked vector's ``{vr [n],
-    vc [d]}`` replaced by ``{v [n, d]}``: the reference's denominator, in
-    float32, with the reference Adafactor's default eps (1e-30)."""
-    if isinstance(node, dict) and "vr" in node and np.ndim(node["vr"]) == 1:
-        vr, vc = np.asarray(node["vr"], np.float32), np.asarray(node["vc"], np.float32)
-        return {"v": vr[:, None] * vc[None, :] / np.maximum(vr.mean(), np.float32(1e-30))}
-    if isinstance(node, dict):
-        return {k: _unfactor_vectors(v) for k, v in node.items()}
-    return node
-
-
 def lm_opt_state(opt_state: dict, cfg) -> dict:
     """The reference's optimizer state for ``cfg``'s parameters (numpy
     leaves) as the port's, on the CPU: AdamW's ``m``/``v`` (stacked over
     ``units``, plus ``tail``) unstacked by parameter name as ``lm_params``
-    unstacks parameters, or Adafactor's ``s`` per parameter, and ``step``.
-    The reference stacks each unit's layers, so it factors a stacked vector
-    (a norm) over the layers where the port keeps a whole ``v`` per layer:
-    that ``v`` is the reference's own estimate for the layer,
-    vr[i]·vc / max(mean(vr), eps).  Raises ``ValueError`` unless every key
-    and shape is the port optimizer's."""
+    unstacks parameters, or Adafactor's ``s`` as the port's Adafactor keeps
+    it under ``transformer.unit_stacks(cfg)``: each unit position's stacked
+    state under ``units.{pos}.{name}``, the tail's by parameter name; and
+    ``step``.  Raises ``ValueError`` unless every key and shape is the port
+    optimizer's."""
     from repro_torch.models import transformer
     from repro_torch.optim import adafactor
 
@@ -210,9 +197,14 @@ def lm_opt_state(opt_state: dict, cfg) -> dict:
                                    f"{cfg.name}: AdamW {name}") for name in ("m", "v")}
         return {**moments, "step": step}
     s = opt_state["s"]
-    units = [_unfactor_vectors(u) for u in s["units"]]
-    flat = _lm_flat({**s, "units": units}, cfg)
-    want = {f"{name}.{leaf}": t for name, state in adafactor().init(params)["s"].items()
+    n_stacked = cfg.n_units * len(cfg.unit)
+    flat = {k: _as_numpy(v) for k, v in _leaves(
+        {"embed": s["embed"], "final_norm": s["final_norm"]})}
+    for prefix, tree in [*((f"units.{pos}", u) for pos, u in enumerate(s["units"])),
+                         *((f"layers.{n_stacked + j}", t) for j, t in enumerate(s["tail"]))]:
+        flat.update({f"{prefix}.{k}": _as_numpy(v) for k, v in _leaves(tree)})
+    opt = adafactor(stacks=transformer.unit_stacks(cfg))
+    want = {f"{key}.{leaf}": t for key, state in opt.init(params)["s"].items()
             for leaf, t in state.items()}
     got = _to_torch(flat, want, f"{cfg.name}: Adafactor state")
     out: dict[str, dict] = {}

@@ -22,7 +22,8 @@ from repro_torch.optim.adamw import apply_updates
 
 def choose_optimizer(cfg: ModelConfig, name: str = "auto"):
     """Memory plan: models above 1e11 parameters train with Adafactor,
-    everything else with AdamW."""
+    everything else with AdamW.  Adafactor stacks each unit position's
+    repeats as the reference does (``tfm.unit_stacks``)."""
     if name == "auto":
         name = "adafactor" if cfg.param_count() > 1e11 else "adamw"
     if name == "adamw":
@@ -31,7 +32,7 @@ def choose_optimizer(cfg: ModelConfig, name: str = "auto"):
         # smoke/example scale: flat high lr, no decay
         return name, adamw(lr=3e-3, weight_decay=0.0)
     if name == "adafactor":
-        return name, adafactor(lr=1e-2)
+        return name, adafactor(lr=1e-2, stacks=tfm.unit_stacks(cfg))
     raise ValueError(name)
 
 
@@ -49,14 +50,23 @@ def loss_and_grads(params: tfm.Transformer, batch: dict, cfg: ModelConfig):
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 
 
+class UpdateInterrupted(RuntimeError):
+    """A train step failed after it began to update the moments or the
+    parameters in place: the model and the optimizer state are partly
+    updated, and only a checkpoint restores them."""
+
+
 def make_train_step(cfg: ModelConfig, optimizer, *, grad_clip: float = 1.0):
     def train_step(params, opt_state, batch):
         loss, metrics, grads = loss_and_grads(params, batch, cfg)
         grads, gnorm = clip_by_global_norm(grads, grad_clip)
         named = dict(params.named_parameters())
-        updates, opt_state = optimizer.update(grads, opt_state, named)
-        del grads  # the clipped copy (4 B a parameter) goes before the updates are added
-        apply_updates(named, updates)
+        try:
+            updates, opt_state = optimizer.update(grads, opt_state, named)
+            del grads  # the clipped copy (4 B a parameter) goes before the updates are added
+            apply_updates(named, updates)
+        except RuntimeError as e:
+            raise UpdateInterrupted(f"the update failed partway: {e}") from e
         return params, opt_state, {**metrics, "loss": loss, "grad_norm": gnorm}
 
     return train_step

@@ -80,7 +80,11 @@ def train_loop(
 ):
     """Fault-tolerant training loop.  Returns (run, history).  A step that
     raises ``RuntimeError`` (a CUDA error or an injected fault among them)
-    restarts from the latest checkpoint, within the restart budget."""
+    restarts from the latest checkpoint, within the restart budget; with no
+    checkpoint it runs the step again from the state it holds.  The step
+    updates the moments and the parameters in place, so a failure there
+    (``steps.UpdateInterrupted``) leaves that state partly updated: with no
+    checkpoint to go back to, it is raised."""
     ft = ft or FTConfig()
     checkpointer = store.AsyncCheckpointer(ckpt_dir) if ckpt_dir else None
     detector = StragglerDetector(ft)
@@ -119,8 +123,11 @@ def train_loop(
             time.sleep(min(backoff, 0.1))  # clamped for tests
             if checkpointer:
                 checkpointer.wait()
-            if ckpt_dir and store.latest_step(ckpt_dir) is not None:
-                _restore(run, ckpt_dir, store.latest_step(ckpt_dir))
+            last = store.latest_step(ckpt_dir) if ckpt_dir else None
+            if last is not None:
+                _restore(run, ckpt_dir, last)
+            elif isinstance(e, steps_mod.UpdateInterrupted):
+                raise
 
     if checkpointer:
         if run.step % ft.checkpoint_every:

@@ -88,6 +88,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> Transformer:
     return Transformer(cfg, device=device, generator=generator)
 
 
+def unit_stacks(cfg: ModelConfig) -> dict[str, list[str]]:
+    """The parameters the reference stacks: ``units.{pos}.{name}`` → the
+    ``state_dict`` names of that parameter in each repeat of unit position
+    ``pos`` (layers ``pos``, ``pos + len(unit)``, ...), in order.  The
+    tail's layers, the embedding and the final norm stand alone."""
+    U = len(cfg.unit)
+    return {f"units.{pos}.{name}": [f"layers.{i * U + pos}.{name}" for i in range(cfg.n_units)]
+            for pos, kind in enumerate(cfg.unit)
+            for name in Layer(kind, cfg, device="meta").state_dict()}
+
+
 # ------------------------------------------------------------------ caches
 
 def init_layer_cache(cfg: ModelConfig, kind: str, batch: int, seq_len: int, device=None):

@@ -3,9 +3,12 @@ parameter against AdamW's 8, the memory plan for the largest models.
 
 Every tensor of two or more dimensions keeps a row and a column second
 moment (``vr``, ``vc``) over its last two axes; vectors keep a full ``v``.
-The port holds one tensor per layer where the reference stacks each unit's
-layers, so a stacked vector (a norm) is factored there and kept whole here,
-and the update's RMS clip is taken per layer here, over the stack there.
+The reference stacks each unit position's repeats into one tensor, and so
+factors a stack of norm vectors over the repeats and takes the update's RMS
+clip over the whole stack.  ``stacks`` gives the port the same algorithm:
+each entry names parameters that are updated as one tensor stacked on a
+new first axis, with their state kept under the entry's key
+(``models.transformer.unit_stacks(cfg)`` names the reference's stacks).
 """
 
 from __future__ import annotations
@@ -21,19 +24,41 @@ def adafactor(
     eps: float = 1e-30,
     clip_threshold: float = 1.0,
     weight_decay: float = 0.0,
+    stacks: dict[str, list[str]] | None = None,
 ) -> Optimizer:
+    """``stacks``: state key → the parameter names stacked under it, in
+    order; every other parameter is its own tensor, keyed by its name."""
+    stacks = dict(stacks or {})
+    stacked = {name: key for key, names in stacks.items() for name in names}
+
     def _factored(shape) -> bool:
         return len(shape) >= 2
 
-    def init(params: dict) -> dict:
-        def one(p):
-            f32 = {"dtype": torch.float32, "device": p.device}
-            if _factored(p.shape):
-                return {"vr": torch.zeros(p.shape[:-1], **f32),
-                        "vc": torch.zeros(p.shape[:-2] + p.shape[-1:], **f32)}
-            return {"v": torch.zeros(p.shape, **f32)}
+    def _groups(names) -> dict[str, list[str]]:
+        """State key → its parameter names, keys in the order their first
+        parameter comes in ``names``."""
+        groups: dict[str, list[str]] = {}
+        for name in names:
+            key = stacked.get(name, name)
+            if key not in groups:
+                groups[key] = stacks.get(key, [name])
+        return groups
 
-        return {"s": {k: one(p) for k, p in params.items()}, "step": step_counter()}
+    def _gather(tensors: dict, key: str, names: list[str]) -> torch.Tensor:
+        return torch.stack([tensors[n] for n in names]) if key in stacks else tensors[key]
+
+    def init(params: dict) -> dict:
+        def one(names):
+            p = params[names[0]]
+            shape = (len(names), *p.shape) if names[0] in stacked else tuple(p.shape)
+            f32 = {"dtype": torch.float32, "device": p.device}
+            if _factored(shape):
+                return {"vr": torch.zeros(shape[:-1], **f32),
+                        "vc": torch.zeros(shape[:-2] + shape[-1:], **f32)}
+            return {"v": torch.zeros(shape, **f32)}
+
+        return {"s": {key: one(names) for key, names in _groups(params).items()},
+                "step": step_counter()}
 
     @torch.no_grad()
     def update(grads: dict, state: dict, params: dict):
@@ -41,11 +66,11 @@ def adafactor(
         t = step.float()
         beta = 1.0 - t ** (-decay)
         updates = {}
-        for k, g in grads.items():
-            s, p = state["s"][k], params[k]
-            g32 = g.float()
+        for key, names in _groups(grads).items():
+            s = state["s"][key]
+            g32 = _gather(grads, key, names).float()
             g2 = g32 * g32 + eps
-            if _factored(g.shape):
+            if _factored(g32.shape):
                 s["vr"] = beta * s["vr"] + (1 - beta) * g2.mean(dim=-1)
                 s["vc"] = beta * s["vc"] + (1 - beta) * g2.mean(dim=-2)
                 vr, vc = s["vr"], s["vc"]
@@ -58,8 +83,9 @@ def adafactor(
             rms_u = torch.sqrt(torch.mean(u * u) + eps)
             u = u / torch.clamp(rms_u / clip_threshold, min=1.0)
             if weight_decay:
-                u = u + weight_decay * p.float()
-            updates[k] = (-lr * u).to(p.dtype)
+                u = u + weight_decay * _gather(params, key, names).float()
+            upd = (-lr * u).to(params[names[0]].dtype)
+            updates.update(zip(names, upd.unbind(0)) if key in stacks else [(key, upd)])
         return updates, {"s": state["s"], "step": step}
 
     return Optimizer(init=init, update=update)

@@ -77,6 +77,58 @@ def test_optimizer_matches_reference_on_identical_gradients(name):
                     _close(state["s"][k][leaf], ref_state["s"][k][leaf], (name, step, leaf, k))
 
 
+@pytest.mark.parametrize("repeats", [1, 3])
+def test_adafactor_stacks_match_reference(repeats):
+    """Parameters named in ``stacks`` are updated as the reference updates
+    its stacked unit: a stack of vectors factored over the repeats, the RMS
+    clip taken over the whole stack; the others stand alone.  5 steps,
+    weight decay on, compared as above."""
+    rng = np.random.default_rng(repeats)
+    unit = {"w": (16, 12), "norm": (7,), "experts": (3, 8, 5)}
+    ref_init = {"units": [{k: rng.standard_normal((repeats, *s)).astype(np.float32)
+                           for k, s in unit.items()}],
+                "embed": rng.standard_normal((10, 6)).astype(np.float32),
+                "b": rng.standard_normal(7).astype(np.float32)}
+    stacks = {f"units.0.{k}": [f"layers.{i}.{k}" for i in range(repeats)] for k in unit}
+
+    def flat(tree):
+        out = {k: tree[k] for k in ("embed", "b")}
+        out.update({f"layers.{i}.{k}": v[i] for k, v in tree["units"][0].items()
+                    for i in range(repeats)})
+        return out
+
+    kw = {"lr": 1e-2, "clip_threshold": 0.5, "weight_decay": 0.01}
+    ref_opt, opt = ref_adafactor(**kw), adafactor(**kw, stacks=stacks)
+    ref_params = {"units": [{k: jnp.asarray(v) for k, v in ref_init["units"][0].items()}],
+                  "embed": jnp.asarray(ref_init["embed"]), "b": jnp.asarray(ref_init["b"])}
+    params = {k: torch.from_numpy(np.array(v)) for k, v in flat(ref_init).items()}
+    ref_state, state = ref_opt.init(ref_params), opt.init(params)
+    assert set(state["s"]) == {"embed", "b", *stacks}
+    for step in range(5):
+        g = {"units": [{k: np.asarray(rng.standard_normal((repeats, *s))
+                                      * 10.0 ** rng.integers(-6, 2, (repeats, *s)), np.float32)
+                        for k, s in unit.items()}],
+             "embed": rng.standard_normal((10, 6)).astype(np.float32),
+             "b": rng.standard_normal(7).astype(np.float32)}
+        ref_up, ref_state = ref_opt.update(
+            {"units": [{k: jnp.asarray(v) for k, v in g["units"][0].items()}],
+             "embed": jnp.asarray(g["embed"]), "b": jnp.asarray(g["b"])}, ref_state, ref_params)
+        ref_params = ref_apply_updates(ref_params, ref_up)
+        up, state = opt.update({k: torch.from_numpy(v) for k, v in flat(g).items()},
+                               state, params)
+        apply_updates(params, up)
+        want_up, want_p = flat(ref_up), flat(ref_params)
+        for k in params:
+            _close(up[k], want_up[k], (repeats, step, "update", k))
+            _close(params[k], want_p[k], (repeats, step, "param", k))
+        ref_s = {"embed": ref_state["s"]["embed"], "b": ref_state["s"]["b"],
+                 **{f"units.0.{k}": v for k, v in ref_state["s"]["units"][0].items()}}
+        for key, leaves in state["s"].items():
+            assert set(leaves) == set(ref_s[key]), key
+            for leaf, got in leaves.items():
+                _close(got, ref_s[key][leaf], (repeats, step, key, leaf))
+
+
 def test_global_norm_and_clip_match_reference():
     rng = np.random.default_rng(1)
     tree = {"a": rng.standard_normal((5, 4)).astype(np.float32),
@@ -145,3 +197,9 @@ def test_choose_optimizer_and_state_shapes():
     fact = steps.opt_state_shapes(adafactor(), shapes)["s"]
     assert set(fact) == set(shapes)
     assert fact["embed.tok"]["vr"].shape == shapes["embed.tok"].shape[:-1]
+    # choose_optimizer's Adafactor keeps one state per stacked unit position
+    stacked = steps.opt_state_shapes(steps.choose_optimizer(full, "adafactor")[1], shapes)["s"]
+    assert stacked["units.0.attn_norm"]["vr"].shape == (full.n_layers,)
+    assert stacked["units.0.attn_norm"]["vc"].shape == (full.d_model,)
+    assert stacked["units.0.attn.wq"]["vr"].shape == (full.n_layers, full.d_model)
+    assert not any(k.startswith("layers.") for k in stacked)

@@ -39,6 +39,7 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.data.pipeline import DataConfig, SyntheticStream
 from repro_torch.launch import steps, train
 from repro_torch.models import transformer as T
+from repro_torch.optim.adamw import Optimizer
 from repro_torch.runtime.fault_tolerance import FTConfig, FaultInjector
 
 F32_TOL = 1e-4
@@ -169,21 +170,19 @@ def _ref_steps(cfg, tree, name: str, n_steps: int, seed: int):
 @pytest.mark.parametrize("arch,name,n_layers", [
     ("stablelm_3b", "adamw-fast", None), ("gemma2_27b", "adamw", None),
     ("deepseek_moe_16b", "adamw-fast", None), ("stablelm_3b", "adafactor", 1),
-    ("recurrentgemma_9b", "adafactor", None)])
+    ("recurrentgemma_9b", "adafactor", None), ("stablelm_3b", "adafactor", None),
+    ("gemma2_27b", "adafactor", None)])
 def test_train_steps_match_reference(arch, name, n_layers):
     """The port's train step from the reference's weights: the first step's
     optimizer state equals the reference's (carried across by
-    ``convert.lm_opt_state``), and three steps' losses agree.  The port
-    keeps Adafactor's state per layer; the reference stacks the unit's
-    repeats, factoring a stacked vector and taking the RMS clip over the
-    stack.  With one repeat of the unit (stablelm cut to 1 layer;
-    recurrentgemma's 5 layers are one unit of 3 and a tail of 2) the two
-    are the same algorithm, which is what is compared."""
+    ``convert.lm_opt_state``), and three steps' losses agree.  Adafactor
+    stacks each unit position's repeats as the reference does: stablelm at
+    1 layer (one repeat), at 2 (two repeats of a unit of 1), gemma2 (two
+    repeats of a unit of 2), recurrentgemma (one repeat of 3 and a tail of
+    2, which stands alone)."""
     cfg = dataclasses.replace(f32(get_smoke_config(arch)), remat="none")
     if n_layers:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    if name == "adafactor":
-        assert cfg.n_units == 1
     tree = ref_params(cfg)
     want_losses, want_states = _ref_steps(cfg, tree, name, 3, seed=2)
     model = port_model(cfg, tree)
@@ -275,6 +274,46 @@ def test_restart_budget_exhausted_raises(tmp_path):
     with pytest.raises(RuntimeError, match="budget exhausted"):
         train.train_loop(run, stream, 4, ft=FTConfig(max_restarts=1), injector=injector,
                          log_every=1000)
+
+
+def _failing_update(opt, at_call: int):
+    """``opt`` whose update at call ``at_call`` updates the first half of
+    the tensors in place and then raises, as a CUDA out-of-memory error
+    partway through the update would."""
+    calls = [0]
+
+    def update(grads, state, params):
+        calls[0] += 1
+        if calls[0] == at_call:
+            opt.update(dict(list(grads.items())[: len(grads) // 2]), state, params)
+            raise torch.OutOfMemoryError("injected partway through the update")
+        return opt.update(grads, state, params)
+
+    return Optimizer(opt.init, update)
+
+
+@pytest.mark.parametrize("with_checkpoint", [False, True])
+def test_train_loop_failure_inside_the_update(tmp_path, with_checkpoint):
+    """A failure partway through the in-place update at step 2: with no
+    checkpoint the loop raises (the moments and parameters are partly
+    updated); with one it restores it, and the run ends with the weights of
+    a run without the failure."""
+    cfg = get_smoke_config("stablelm_3b")
+    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=8, global_batch=2))
+    run = train.build_run(cfg, "adamw-fast", device="cpu")
+    _, opt = steps.choose_optimizer(cfg, "adamw-fast")
+    run.step_fn = steps.make_train_step(cfg, _failing_update(opt, 3))
+    if not with_checkpoint:
+        with pytest.raises(steps.UpdateInterrupted, match="injected"):
+            train.train_loop(run, stream, 4, log_every=1000)
+        return
+    run, hist = train.train_loop(run, stream, 4, ckpt_dir=str(tmp_path),
+                                 ft=FTConfig(checkpoint_every=1), log_every=1000)
+    assert [h["step"] for h in hist] == [0, 1, 2, 3]
+    clean, _ = train.train_loop(train.build_run(cfg, "adamw-fast", device="cpu"), stream, 4,
+                                log_every=1000)
+    for k, v in clean.params.state_dict().items():
+        assert torch.equal(run.params.state_dict()[k], v), k
 
 
 def test_build_run_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
