@@ -3,7 +3,8 @@ a schedule, and with a flat lr and weight decay) and Adafactor (with and
 without weight decay) fed the same numpy gradients for 5 steps; parameters
 and every moment agree within ``TOL`` × the tensor's largest value (both
 sides compute the same float32 elementwise formulas; the sums in
-Adafactor's means and the clip may take another order).  Also
+Adafactor's means and the clip may take another order); Adafactor with
+``stacks`` against the reference's stacked unit.  Also
 ``global_norm``, ``clip_by_global_norm``, ``warmup_cosine``,
 ``choose_optimizer``, ``opt_state_shapes`` and twins of
 ``tests/test_substrate.py``'s optimizer tests."""

@@ -2,8 +2,8 @@
 loss and every gradient of all ten archs, ``remat`` "full" and "dots"
 against none, the train step's optimizer state carried across by
 ``convert.lm_opt_state``, the losses of three train steps, the
-fault-tolerant loop (twins of ``tests/test_system.py``'s train tests), the
-device rule of ``build_run``, ``python -m repro_torch.launch.train`` and
+fault-tolerant loop (twins of ``tests/test_system.py``'s train tests, and a
+failure partway through the in-place update), the device rule of ``build_run``, ``python -m repro_torch.launch.train`` and
 ``examples/torch_train_lm.py``.
 
 Bounds.  Gradients in float32 within ``F32_TOL`` × the tensor's largest
