@@ -77,6 +77,7 @@ import importlib.util
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -84,13 +85,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
 
 import repro_torch.pim as pim  # noqa: E402
 from benchmarks import (torch_fig4_cc, torch_fig5_matmul, torch_fig6_cnn_infer,  # noqa: E402
-                        torch_fig7_cnn_train, torch_smoke)
+                        torch_fig7_cnn_train, torch_roofline_table, torch_smoke)
 from repro_torch.configs import ARCHS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.core.analyzer import Workload, analyze  # noqa: E402
 from repro_torch.core.costmodel import H100  # noqa: E402
@@ -100,7 +102,9 @@ from repro_torch.data.pipeline import DataConfig, SyntheticStream  # noqa: E402
 from repro_torch.kernels import _build, ops, pim_bitserial, pim_matmul  # noqa: E402
 from repro_torch.launch import steps as lm_steps  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.serve import ServeEngine  # noqa: E402
+from repro_torch.parallel import compression  # noqa: E402
 from repro_torch.runtime.fault_tolerance import FTConfig, FaultInjector  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
@@ -167,6 +171,21 @@ TRAIN_WARMUP, TRAIN_TIMED = 1, 2  # two timed steps keep the whole script near 6
 # Bytes a parameter: AdamW reads p, g, m, v and writes p, m, v (float32);
 # clipping reads g for the norm, then reads g and writes the scaled copy.
 ADAMW_BYTES, CLIP_BYTES = 28, 12
+
+# The scale-out phase.  A mesh of one NCCL rank: the sharded serving engine's
+# greedy tokens equal the meshless engine's; two AdamW steps of stablelm-3b
+# at full width, depth 2, in float32, within TRAIN_LOSS_RTOL (loss, relative)
+# and SCALE_PARAM_TOL x each parameter's largest of the meshless run.
+SCALE_PARAM_TOL = 1e-4
+SCALE_TRAIN_STEPS = 2
+# compressed_psum_mean over every gradient leaf of stablelm-3b at full width:
+# it reads g and the residual and writes the mean and the new residual, 16 B
+# an element, at 3.35 TB/s (the codes and scales are intermediates).
+COMPRESS_BYTES = 16
+# The dry-run cells counted on the 16x16 fake mesh, each in its own process.
+DRYRUN_CELLS = [("stablelm-3b", "train_4k"), ("stablelm-3b", "decode_32k"),
+                ("gemma2-27b", "decode_32k")]
+DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun_smoke")
 
 F32_SPECIALS = np.array(
     [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45, 1.1754942e-38,
@@ -1139,6 +1158,158 @@ def train_phase(dev: torch.device, smi: str) -> dict:
     return {**result, "smoke_bf16_worst": bf16}
 
 
+def scaleout_mesh_runs(dev: torch.device, mesh) -> dict:
+    """(a) Every smoke arch served greedily through ``ServeEngine.build(...,
+    mesh=mesh)`` equals the meshless engine on the card, token for token;
+    two AdamW steps of stablelm-3b at full width, depth 2 (float32) through
+    ``build_run(..., mesh=mesh)`` agree with the meshless run."""
+    for i, arch in enumerate(ARCHS):
+        cfg = get_smoke_config(arch)
+        tokens, cross = serve_inputs(cfg, SERVE_SMOKE[:2], SEED + i)
+        B, P = tokens.shape
+        cross = None if cross is None else cross.numpy()
+        outs = [ServeEngine.build(cfg, P + SERVE_SMOKE[2], seed=SEED, device=dev, mesh=m)
+                .generate(tokens.numpy(), SERVE_SMOKE[2], temperature=0.0, cross_embeds=cross)
+                for m in (None, mesh)]
+        require(np.array_equal(outs[0], outs[1]),
+                f"scale-out serve {arch}: tokens on the mesh {outs[1][:, P:].tolist()} != "
+                f"meshless {outs[0][:, P:].tolist()}")
+    say(f"scale-out: ServeEngine on the 1x1 mesh: greedy tokens equal to the meshless engine's "
+        f"for all {len(ARCHS)} smoke archs ({SERVE_SMOKE[0]} prompts of {SERVE_SMOKE[1]}, "
+        f"{SERVE_SMOKE[2]} tokens)")
+    cfg = f32_config(dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2))
+    batches = [train_batch(cfg, TRAIN_UNIT, SEED + i, dev) for i in range(SCALE_TRAIN_STEPS)]
+    results = []
+    for m in (None, mesh):
+        run = lm_train.build_run(cfg, "adamw", seed=SEED, device=dev, mesh=m)
+        losses = []
+        for batch in batches:
+            _, run.opt_state, metrics = run.step_fn(run.params, run.opt_state, dict(batch))
+            losses.append(float(metrics["loss"]))
+        params = {k: (v.full_tensor() if m is not None else v).detach().clone()
+                  for k, v in run.params.state_dict().items()}
+        results.append((losses, params))
+        del run
+    (l0, p0), (l1, p1) = results
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(l0, l1))
+    require(loss_err <= TRAIN_LOSS_RTOL, f"scale-out train: losses {l1} against {l0}")
+    param_err = max(float((p1[k] - v).abs().max() / v.abs().max().clamp(min=1e-30))
+                    for k, v in p0.items())
+    require(param_err <= SCALE_PARAM_TOL, f"scale-out train: parameters off by {param_err}")
+    say(f"scale-out: build_run on the 1x1 mesh, {cfg.name} at full width, depth 2, float32: "
+        f"{SCALE_TRAIN_STEPS} AdamW steps on {TRAIN_UNIT[0]}x{TRAIN_UNIT[1]} tokens, losses "
+        f"{', '.join(f'{x:.6f}' for x in l1)} against meshless {', '.join(f'{x:.6f}' for x in l0)} "
+        f"(worst {loss_err:.2e} relative, bound {TRAIN_LOSS_RTOL}); parameters within "
+        f"{param_err:.2e} of their largest (bound {SCALE_PARAM_TOL})")
+    del results, p0, p1
+    torch.cuda.empty_cache()
+    return {"train_loss_rel_err": loss_err, "train_param_err": param_err}
+
+
+def scaleout_compression(dev: torch.device, mesh, smi: str) -> dict:
+    """(b) ``compressed_psum_mean`` over every gradient leaf of stablelm-3b
+    at full width (seeded normal values in each parameter's shape), leaf by
+    leaf over the mesh's data group, timed by CUDA events beside the bytes
+    bound; the largest leaf on the card equals the same leaf on the CPU (a
+    gloo group of this one rank) bit for bit."""
+    cfg = get_config(TRAIN_ARCH)
+    shapes = lm_steps.param_shapes(cfg)
+    group = mesh.get_group("data")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total_ms, n = 0.0, 0
+    largest = max(shapes, key=lambda k: shapes[k].numel())
+    for name, shape in shapes.items():
+        g = torch.randn(shape.shape, generator=gen, device=dev)
+        err = torch.zeros_like(g)
+        if n == 0:
+            compression.compressed_psum_mean(g, err, group)  # warm-up
+        torch.cuda.synchronize()
+        start.record()
+        mean, new_err = compression.compressed_psum_mean(g, err, group)
+        end.record()
+        end.synchronize()
+        total_ms += start.elapsed_time(end)
+        n += g.numel()
+        require(bool(torch.isfinite(mean).all()), f"compression {name}: non-finite mean")
+        if name == largest:
+            cpu_group = dist.new_group([0], backend="gloo")
+            mean_cpu, err_cpu = compression.compressed_psum_mean(g.cpu(), err.cpu(), cpu_group)
+            require(torch.equal(mean.cpu(), mean_cpu) and torch.equal(new_err.cpu(), err_cpu),
+                    f"compression {name}: the card differs from the CPU")
+            rel = float((mean - g).abs().max() / g.abs().max())
+        del g, err, mean, new_err
+    require(n == cfg.param_count(), f"compression: {n} elements, not {cfg.param_count()}")
+    bound = COMPRESS_BYTES * n / HBM_BYTES_PER_S * 1e3
+    say(f"scale-out: compressed_psum_mean over {len(shapes)} gradient leaves of {cfg.name} "
+        f"({n} float32 elements) on the data group of one NCCL rank: {total_ms:.3f} ms by CUDA "
+        f"events, bound {bound:.3f} ms ({COMPRESS_BYTES} B an element at 3.35 TB/s) -> "
+        f"{bound / total_ms:.1%} of the bound; largest leaf {largest} "
+        f"{tuple(shapes[largest].shape)} bit-equal to the CPU's, its int8 round trip within "
+        f"{rel:.2e} of its largest ({smi})")
+    return {"compress_ms": total_ms, "compress_bound_ms": bound, "elements": n}
+
+
+def scaleout_dryrun() -> dict:
+    """(c) The dry run of ``DRYRUN_CELLS`` on the 16x16 fake mesh, each cell
+    in a process of its own (the fake group is that process's default
+    group), then the roofline table and the offload report from the
+    records."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")}
+    procs = [subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                               "--shape", shape, "--out", DRYRUN_DIR], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for arch, shape in DRYRUN_CELLS]
+    try:
+        outs = [proc.communicate(timeout=600)[0] for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    for (arch, shape), proc, out in zip(DRYRUN_CELLS, procs, outs):
+        ok = [line for line in out.splitlines() if line.startswith("OK")]
+        require(proc.returncode == 0 and len(ok) == 1, f"dry run {arch} x {shape}: {out[-2000:]}")
+        say(f"scale-out: dry run {ok[0]}")
+    rows = torch_roofline_table.run(DRYRUN_DIR)
+    require(len(rows) == len(DRYRUN_CELLS), f"roofline table: {rows}")
+    for r in rows:
+        say("scale-out: roofline (modeled, H100 data-sheet peaks) " + json.dumps(r))
+    spec = importlib.util.spec_from_file_location(
+        "torch_pim_offload_report", os.path.join(ROOT, "examples", "torch_pim_offload_report.py"))
+    report = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(report)
+    verdicts = report.main([DRYRUN_DIR])
+    require(len(verdicts) == len(DRYRUN_CELLS), "offload report: a record is missing")
+    return {r["name"]: r["dominant"] for r in rows}
+
+
+def scaleout_phase(dev: torch.device, smi: str) -> dict:
+    """The scale-out path on the card: a mesh of one NCCL rank
+    (``make_host_mesh()``), the sharded serving engine and train step
+    against the meshless ones, the int8 compressed all-reduce at
+    stablelm-3b's full width, and the dry run with its roofline table and
+    offload report.  No kernel of the port runs here: the counts must stay
+    0."""
+    pim_bitserial.reset_launches()
+    pim_matmul.reset_launches()
+    mesh = make_host_mesh(device=dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    require(dist.get_backend() == backend and tuple(mesh.shape) == (1, 1),
+            f"make_host_mesh(): {dist.get_backend()} {mesh}")
+    result = scaleout_mesh_runs(dev, mesh)
+    result.update(scaleout_compression(dev, mesh, smi))
+    result["dryrun_dominant"] = scaleout_dryrun()
+    dist.destroy_process_group()
+    torch.cuda.synchronize()
+    launches = {**pim_bitserial.LAUNCHES,
+                **{f"pim_matmul/{k}": v for k, v in pim_matmul.LAUNCHES.items()}}
+    say(f"scale-out: the port's kernel launches in the scale-out phase {launches}")
+    require(not any(launches.values()), "the scale-out phase launched a kernel of the port")
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1293,6 +1464,10 @@ def main() -> int:
     trained = train_phase(dev, smi)
     say(f"train: phase took {time.perf_counter() - t0:.1f} s wall; summary "
         f"{json.dumps(trained)}")
+    t0 = time.perf_counter()
+    scaled = scaleout_phase(dev, smi)
+    say(f"scale-out: phase took {time.perf_counter() - t0:.1f} s wall; summary "
+        f"{json.dumps(scaled)}")
 
     sources = {  # name: (source, TPU kernel, library, kernel symbol, reported case)
         "bitserial_loop": ("src/repro_torch/kernels/csrc/bitserial_loop.cu",

@@ -1,8 +1,11 @@
 """Serving engine: batched prefill + decode with temperature sampling.
 
 The same two steps the reference's serving engine jits, driven eagerly on
-one CUDA card (``device=None``) or, when asked, on the CPU.  There is one
-device and no mesh: sharding the engine over several cards is later work.
+one CUDA card (``device=None``) or, when asked, on the CPU.  Given a
+``DeviceMesh`` (``launch.mesh.make_host_mesh``), the parameters, caches and
+prompts are DTensors placed by ``parallel.sharding``'s ``param_specs``,
+``cache_specs`` and ``batch_specs``, and every rank of the mesh runs the
+same steps on its shards.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
       --batch 4 --prompt-len 512 --gen 32
@@ -23,18 +26,22 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import transformer as tfm
+from repro_torch.models.spmd import full, on_mesh
+from repro_torch.parallel import sharding
 from repro_torch.pim.frontend import resolve_device
 
 
 @dataclasses.dataclass
 class ServeEngine:
-    """``params`` served with caches of ``max_seq`` positions on ``device``;
-    ``build`` draws a fresh serving model, and the constructor serves a
-    model the caller already holds (any dtypes)."""
+    """``params`` served with caches of ``max_seq`` positions on ``device``
+    (and, with a ``mesh``, sharded over it); ``build`` draws a fresh serving
+    model, and the constructor serves a model the caller already holds (any
+    dtypes)."""
     cfg: ModelConfig
     params: tfm.Transformer
     max_seq: int
     device: torch.device
+    mesh: object = None
     prefill_fn: object = dataclasses.field(init=False, repr=False)
     decode_fn: object = dataclasses.field(init=False, repr=False)
 
@@ -43,15 +50,21 @@ class ServeEngine:
         self.decode_fn = steps_mod.make_decode_step(self.cfg)
 
     @classmethod
-    def build(cls, cfg: ModelConfig, max_seq: int, seed: int = 0, device=None):
+    def build(cls, cfg: ModelConfig, max_seq: int, seed: int = 0, device=None, mesh=None):
         """The serving model (``serve_config(cfg)``: bf16 weights) with
         parameters drawn from a ``torch.Generator`` seeded with ``seed`` on
         ``device`` (``None`` = the CUDA card; ``RuntimeError`` without one
-        unless ``device="cpu"``).  Caches hold ``max_seq`` positions."""
+        unless ``device="cpu"``).  Caches hold ``max_seq`` positions.  With
+        a ``mesh`` (on ``device``'s type) every rank draws the same model and
+        keeps its shards by ``param_specs``."""
         device = resolve_device(device)
         scfg = steps_mod.serve_config(cfg)
-        return cls(cfg=scfg, params=tfm.init_params(scfg, seed, device), max_seq=max_seq,
-                   device=device)
+        params = tfm.init_params(scfg, seed, device)
+        if mesh is not None:
+            _check_mesh(mesh, device)
+            sharding.distribute_params(
+                params, sharding.param_specs(params.state_dict(), scfg, mesh=mesh), mesh)
+        return cls(cfg=scfg, params=params, max_seq=max_seq, device=device, mesh=mesh)
 
     def generate(self, prompts: np.ndarray, gen_len: int, *, temperature: float = 1.0,
                  seed: int = 0, cross_embeds=None, return_logits: bool = False):
@@ -66,16 +79,37 @@ class ServeEngine:
         caches = tfm.init_caches(self.cfg, B, self.max_seq, dev)
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64).to(dev)
         cross = None if cross_embeds is None else torch.as_tensor(cross_embeds).to(dev)
-        logits, caches = self.prefill_fn(self.params, tokens, caches, cross)
+        if self.mesh is not None:
+            caches = sharding.place_tree(
+                caches, sharding.cache_specs(caches, self.cfg, mesh=self.mesh), self.mesh)
+            if cross is not None:
+                cross = self._batch(cross)
         generator = torch.Generator(device=dev).manual_seed(seed)
         out, seen = [tokens], []
-        for i in range(gen_len):
-            if i:
-                logits, caches = self.decode_fn(self.params, out[-1], P + i - 1, caches, cross)
-            seen.append(logits)
-            out.append(_sample(logits, generator, temperature))
+        with on_mesh(self.mesh):
+            logits, caches = self.prefill_fn(self.params, self._batch(tokens), caches, cross)
+            for i in range(gen_len):
+                if i:
+                    logits, caches = self.decode_fn(self.params, self._batch(out[-1]),
+                                                    P + i - 1, caches, cross)
+                logits = full(logits)
+                seen.append(logits)
+                out.append(_sample(logits, generator, temperature))
         out = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
         return (out, seen) if return_logits else out
+
+    def _batch(self, t: torch.Tensor) -> torch.Tensor:
+        """An input as the steps take it: placed by ``batch_specs`` on a
+        mesh."""
+        if self.mesh is None:
+            return t
+        return sharding.place(t, self.mesh, sharding.batch_specs(t, mesh=self.mesh))
+
+
+def _check_mesh(mesh, device: torch.device) -> None:
+    if mesh.device_type != device.type:
+        raise ValueError(f"a mesh of {mesh.device_type!r} devices cannot hold a model on "
+                         f"{device}")
 
 
 def _sample(logits: torch.Tensor, generator: torch.Generator, temperature: float):

@@ -13,6 +13,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.models import transformer as tfm
@@ -45,7 +46,10 @@ def loss_and_grads(params: tfm.Transformer, batch: dict, cfg: ModelConfig):
     loss.backward()
     grads = {}
     for k, p in params.named_parameters():
-        grads[k] = torch.zeros_like(p) if p.grad is None else p.grad
+        g = torch.zeros_like(p) if p.grad is None else p.grad
+        if isinstance(g, DTensor):  # sum the data-parallel partial gradients once, as p is split
+            g = g.redistribute(g.device_mesh, p.placements)
+        grads[k] = g
         p.grad = None
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
 

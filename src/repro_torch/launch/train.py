@@ -1,6 +1,8 @@
 """Training driver: data → step → metrics, with checkpoint/restart fault
-tolerance and straggler monitoring, on one CUDA card or, when asked, the
-CPU.  Usage:
+tolerance and straggler monitoring, on the CUDA card (the CPU when asked),
+and, given a ``DeviceMesh``, sharded over its ranks: parameters, optimizer
+state and batches are then DTensors placed by ``parallel.sharding``.
+Usage:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b --smoke \
       --steps 50 --ckpt-dir /tmp/ckpt
@@ -21,6 +23,8 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import DataConfig, SyntheticStream
 from repro_torch.launch import steps as steps_mod
 from repro_torch.models import transformer as tfm
+from repro_torch.models.spmd import full, on_mesh
+from repro_torch.parallel import sharding
 from repro_torch.pim.frontend import resolve_device
 from repro_torch.runtime.fault_tolerance import (
     FTConfig,
@@ -33,25 +37,55 @@ from repro_torch.runtime.fault_tolerance import (
 @dataclasses.dataclass
 class TrainRun:
     """Holds the step function and live state; restartable.  ``params`` is
-    the model, updated in place by each step."""
+    the model, updated in place by each step; ``mesh`` the mesh it is
+    sharded over, if any."""
 
     cfg: object
     step_fn: object
     params: tfm.Transformer
     opt_state: dict
     step: int
+    mesh: object = None
 
 
-def build_run(cfg, optimizer_name="adamw", seed=0, device=None) -> TrainRun:
+def build_run(cfg, optimizer_name="adamw", seed=0, device=None, mesh=None,
+              fsdp=False) -> TrainRun:
     """The model drawn from ``seed`` and its optimizer state on ``device``
     (``None`` = the CUDA card; ``RuntimeError`` without one unless
-    ``device="cpu"``)."""
+    ``device="cpu"``).  With a ``mesh`` (on ``device``'s type) every rank
+    draws the same model; the parameters and the optimizer state (its step
+    count stays a CPU scalar) keep their shards by ``param_specs`` (``fsdp``
+    also splits the non-TP dim over ``data``), the step places each batch
+    by ``batch_specs``, and its metrics are whole on every rank."""
     device = resolve_device(device)
     _, optimizer = steps_mod.choose_optimizer(cfg, optimizer_name)
     params = tfm.init_params(cfg, seed, device)
     opt_state = optimizer.init(dict(params.named_parameters()))
     step_fn = steps_mod.make_train_step(cfg, optimizer)
-    return TrainRun(cfg=cfg, step_fn=step_fn, params=params, opt_state=opt_state, step=0)
+    if mesh is not None:
+        if mesh.device_type != device.type:
+            raise ValueError(f"a mesh of {mesh.device_type!r} devices cannot hold a model on "
+                             f"{device}")
+        sharding.distribute_params(
+            params, sharding.param_specs(params.state_dict(), cfg, fsdp=fsdp, mesh=mesh), mesh)
+        specs = sharding.param_specs(opt_state, cfg, fsdp=fsdp, mesh=mesh)
+        opt_state = {k: v if k == "step" else sharding.place_tree(v, specs[k], mesh)
+                     for k, v in opt_state.items()}
+        step_fn = _sharded_step(step_fn, mesh)
+    return TrainRun(cfg=cfg, step_fn=step_fn, params=params, opt_state=opt_state, step=0,
+                    mesh=mesh)
+
+
+def _sharded_step(step_fn, mesh):
+    """``step_fn`` on ``mesh``: the batch placed by ``batch_specs``, the
+    metrics gathered whole."""
+    def step(params, opt_state, batch):
+        batch = sharding.place_tree(batch, sharding.batch_specs(batch, mesh=mesh), mesh)
+        with on_mesh(mesh):
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+        return params, opt_state, {k: full(v) for k, v in metrics.items()}
+
+    return step
 
 
 def _state(run: TrainRun) -> dict:

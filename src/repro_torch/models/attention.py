@@ -24,6 +24,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 
 from .layers import apply_rope, cdtype, normal, pdtype, zeros
+from .spmd import local_heads, merge_heads, split_heads, trips
 
 NEG_INF = -1e30
 POS_SENTINEL = 1 << 30  # key-position pad: fails every validity check
@@ -68,7 +69,8 @@ def _proj(p: Attention, x, cfg: ModelConfig, *, cross_from=None):
         q = q + p.bq.to(dt)
         k = k + p.bk.to(dt)
         v = v + p.bv.to(dt)
-    return q.reshape(B, T, H, hd), k.reshape(B, S, K, hd), v.reshape(B, S, K, hd)
+    return (split_heads(q, H, hd, uneven=True), split_heads(k, K, hd),
+            split_heads(v, K, hd))
 
 
 # --------------------------------------------------------- flash attention
@@ -124,12 +126,12 @@ def flash_attention(
     kpos_b = kv_positions.reshape(nk, bk)
 
     blocks = []
-    for i in range(nq):
+    for i in trips(nq, q):
         qi, qpos = qb[i], qpos_b[i]  # [B,K,G,bq,D], [bq]
         o = torch.zeros((B, K, G, bq, D), dtype=torch.float32, device=dev)
         m = torch.full((B, K, G, bq), NEG_INF, dtype=torch.float32, device=dev)
         l = torch.zeros((B, K, G, bq), dtype=torch.float32, device=dev)
-        for j in range(nk):
+        for j in trips(nk, q):
             ki, vi, kpos = kb[j], vb[j], kpos_b[j]  # [B,K,bk,D], [bk]
             s = (qi @ ki[:, :, None].transpose(-1, -2)) * scale  # [B,K,G,bq,bk]
             if attn_softcap:
@@ -151,6 +153,7 @@ def flash_attention(
         blocks.append(o.to(in_dtype))
 
     # [nq, B, K, G, bq, D] → [B, T, H, D]
+    blocks += blocks[-1:] * (nq - len(blocks))  # counted on meta tensors: one trip
     out = torch.stack(blocks).permute(1, 0, 4, 2, 3, 5).reshape(B, Tp, H, D)
     return out[:, :T]
 
@@ -212,78 +215,80 @@ def attention_block(
     if cache is not None and decode_pos is not None and kind != "cross":
         # ---- one-token decode against the ring cache
         decode_pos = int(decode_pos)
-        q, k_new, v_new = _proj(p, x, cfg)
-        pos = torch.full((B, 1), decode_pos, dtype=torch.int32, device=x.device)
+        q, k_new, v_new, ring, expand, wrap = local_heads(*_proj(p, x, cfg), cache)
+        pos = torch.full((q.shape[0], 1), decode_pos, dtype=torch.int32, device=q.device)
         q = apply_rope(q, pos, cfg.rope_theta)
         k_new = apply_rope(k_new, pos, cfg.rope_theta)
-        slot = decode_pos % cache["k"].shape[1]
+        slot = decode_pos % ring["k"].shape[1]
         if cfg.opt_kv_quant:
             # int8 KV: symmetric per-(token, head) scales, dequantised in
             # the compute dtype before the attention products
             kq, ksc = _quant_kv(k_new)
             vq, vsc = _quant_kv(v_new)
-            cache["k"][:, slot] = kq[:, 0]
-            cache["v"][:, slot] = vq[:, 0]
-            cache["k_scale"][:, slot] = ksc[:, 0]
-            cache["v_scale"][:, slot] = vsc[:, 0]
-            k_att = cache["k"].to(dt) * cache["k_scale"][..., None].to(dt)
-            v_att = cache["v"].to(dt) * cache["v_scale"][..., None].to(dt)
+            ring["k"][:, slot] = kq[:, 0]
+            ring["v"][:, slot] = vq[:, 0]
+            ring["k_scale"][:, slot] = ksc[:, 0]
+            ring["v_scale"][:, slot] = vsc[:, 0]
+            k_att = ring["k"].to(dt) * ring["k_scale"][..., None].to(dt)
+            v_att = ring["v"].to(dt) * ring["v_scale"][..., None].to(dt)
         else:
-            cache["k"][:, slot] = k_new[:, 0]
-            cache["v"][:, slot] = v_new[:, 0]
-            k_att, v_att = cache["k"], cache["v"]
-        cache["pos"][slot] = decode_pos
-        o = decode_attention(q, k_att, v_att, cache["pos"], decode_pos,
+            ring["k"][:, slot] = k_new[:, 0]
+            ring["v"][:, slot] = v_new[:, 0]
+            k_att, v_att = ring["k"], ring["v"]
+        ring["pos"][slot] = decode_pos
+        o = decode_attention(q, expand(k_att), expand(v_att), ring["pos"], decode_pos,
                              window=window, attn_softcap=cfg.attn_softcap)
-        return o.reshape(B, T, -1) @ p.wo.to(dt), cache
+        return merge_heads(wrap(o)) @ p.wo.to(dt), cache
 
     if kind == "cross":
         assert cross_embeds is not None
-        q, k, v = _proj(p, x, cfg, cross_from=cross_embeds.to(dt))
+        q, k, v, _, expand, wrap = local_heads(
+            *_proj(p, x, cfg, cross_from=cross_embeds.to(dt)), None)
         o = flash_attention(
-            q, k, v, causal=False, attn_softcap=cfg.attn_softcap,
+            q, expand(k), expand(v), causal=False, attn_softcap=cfg.attn_softcap,
             q_positions=positions,
-            kv_positions=torch.arange(k.shape[1], dtype=torch.int32, device=x.device),
+            kv_positions=torch.arange(k.shape[1], dtype=torch.int32, device=q.device),
             bq=cfg.attn_bq, bk=cfg.attn_bk,
         )
-        return o.reshape(B, T, -1) @ p.wo.to(dt), None
+        return merge_heads(wrap(o)) @ p.wo.to(dt), None
 
     # ---- training / prefill self-attention
-    q, k, v = _proj(p, x, cfg)
+    q, k, v, ring, expand, wrap = local_heads(*_proj(p, x, cfg), cache)
+    B = q.shape[0]
     q = apply_rope(q, positions[None, :].expand(B, T), cfg.rope_theta)
     k = apply_rope(k, positions[None, :].expand(B, T), cfg.rope_theta)
-    k_att, v_att = k, v
-    if cfg.opt_attn_layout and n_heads_eff(cfg) != cfg.n_kv_heads:
+    k_att, v_att = expand(k), expand(v)
+    if cfg.opt_attn_layout and q.shape[2] != k_att.shape[2]:
         # head-aligned layout: KV repeated to the query-head count
-        g = n_heads_eff(cfg) // cfg.n_kv_heads
-        k_att = k.repeat_interleave(g, dim=2)
-        v_att = v.repeat_interleave(g, dim=2)
+        g = q.shape[2] // k_att.shape[2]
+        k_att = k_att.repeat_interleave(g, dim=2)
+        v_att = v_att.repeat_interleave(g, dim=2)
     o = flash_attention(
         q, k_att, v_att, causal=True, window=window, attn_softcap=cfg.attn_softcap,
         q_positions=positions, kv_positions=positions, bq=cfg.attn_bq, bk=cfg.attn_bk,
     )
-    out = o.reshape(B, T, -1) @ p.wo.to(dt)
+    out = merge_heads(wrap(o)) @ p.wo.to(dt)
 
     if cache is None:
         return out, None
     # prefill: write the prompt's last S_c tokens into the ring
-    S_c = cache["k"].shape[1]
+    S_c = ring["k"].shape[1]
     if T >= S_c:
         k_w, v_w, pos_w = k[:, -S_c:], v[:, -S_c:], positions[-S_c:]
     else:
         k_w, v_w, pos_w = k, v, positions
     slots = (pos_w % S_c).long()
-    cache["pos"][slots] = pos_w.to(torch.int32)
+    ring["pos"][slots] = pos_w.to(torch.int32)
     if cfg.opt_kv_quant:
         kq, ksc = _quant_kv(k_w)
         vq, vsc = _quant_kv(v_w)
-        cache["k"][:, slots] = kq
-        cache["v"][:, slots] = vq
-        cache["k_scale"][:, slots] = ksc
-        cache["v_scale"][:, slots] = vsc
+        ring["k"][:, slots] = kq
+        ring["v"][:, slots] = vq
+        ring["k_scale"][:, slots] = ksc
+        ring["v_scale"][:, slots] = vsc
     else:
-        cache["k"][:, slots] = k_w
-        cache["v"][:, slots] = v_w
+        ring["k"][:, slots] = k_w
+        ring["v"][:, slots] = v_w
     return out, cache
 
 

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 
@@ -51,7 +52,12 @@ def capacity(n_tokens: int, cfg: ModelConfig) -> int:
 
 
 def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig):
-    """x: [B, T, d] → (out [B, T, d], aux_metrics dict)."""
+    """x: [B, T, d] → (out [B, T, d], aux_metrics dict).  On DTensors the
+    router runs on the local tokens; the slot assignment, the capacity
+    buffer and the combine are whole on every device, from gathered choices
+    and tokens (the slots depend on every token's order); the experts split
+    as their weights are (over experts or over d_ff), each device running
+    its share on the whole buffer, as the reference's partitioner does."""
     dt = cdtype(cfg)
     B, T, d = x.shape
     N = B * T
@@ -63,6 +69,9 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig):
     probs = torch.softmax(xf.float() @ p.router, dim=-1)  # [N, E]
     top_w, top_i = torch.topk(probs, k, dim=-1)  # [N, k]
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    xs = xf
+    if isinstance(x, DTensor):
+        top_w, top_i, xs = top_w.full_tensor(), top_i.full_tensor(), xf.full_tensor()
 
     # --- capacity-slot assignment
     e_flat = top_i.reshape(-1)  # [N*k]
@@ -72,20 +81,31 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig):
     keep = pos_in_e < C
     slot = e_flat * C + torch.clamp(pos_in_e, max=C - 1)  # [N*k]
 
-    tok_of_assign = torch.arange(N * k, device=x.device) // k
-    contrib = torch.where(keep[:, None], xf[tok_of_assign], 0).to(dt)
-    buf = torch.zeros((E * C, d), dtype=dt, device=x.device).index_add_(0, slot, contrib)
+    tok_of_assign = torch.arange(N * k, device=xs.device) // k
+    contrib = torch.where(keep[:, None], xs[tok_of_assign], 0).to(dt)
+    buf = torch.zeros((E * C, d), dtype=dt, device=xs.device).index_add_(0, slot, contrib)
     buf = buf.reshape(E, C, d)
+    if isinstance(x, DTensor):
+        buf = DTensor.from_local(buf, x.device_mesh, [Replicate()] * x.device_mesh.ndim,
+                                 run_check=False)
 
     # --- per-expert FFN (batched over the expert dim)
     act = activation(cfg)
     g = act(torch.bmm(buf, p.w_gate.to(dt)))
     u = torch.bmm(buf, p.w_up.to(dt))
-    h = torch.bmm(g * u, p.w_down.to(dt)).reshape(E * C, d)
+    h = torch.bmm(g * u, p.w_down.to(dt))
+    if isinstance(x, DTensor):
+        h = h.full_tensor()
+    h = h.reshape(E * C, d)
 
     # --- combine
     gathered = h[slot] * (w_flat * keep).to(dt)[:, None]  # [N*k, d]
     out = gathered.reshape(N, k, d).sum(dim=1)
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        out = DTensor.from_local(out, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        out = out.redistribute(mesh, [pl if isinstance(pl, Shard) else Replicate()
+                                      for pl in xf.placements])
 
     if cfg.n_shared_experts:
         s = p.shared
@@ -101,3 +121,4 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig):
         "dropped_frac": 1.0 - keep.float().mean(),
     }
     return out.reshape(B, T, d), aux
+

@@ -20,6 +20,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 
 from .layers import cdtype, gelu, normal, pdtype, zeros
+from .spmd import depthwise_conv1d
 
 _C = 8.0  # Griffin's recurrence-gate sharpness constant
 
@@ -89,7 +90,7 @@ def rglru_block(p: RGLRU, x: torch.Tensor, cfg: ModelConfig, state: dict | None 
     xp = F.pad(xb, (0, 0, W - 1, 0))
     if state is not None:
         xp[:, : W - 1] = state["conv"]
-    xc = F.conv1d(xp.transpose(1, 2), p.conv_w.to(dt_).T[:, None, :], groups=w)
+    xc = depthwise_conv1d(xp.transpose(1, 2), p.conv_w.to(dt_).T[:, None, :], groups=w)
     xc = xc.transpose(1, 2) + p.conv_b.to(dt_)
     xc32 = xc.float()
     a, scale = _gates(p, xc32)

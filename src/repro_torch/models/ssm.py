@@ -16,6 +16,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 
 from .layers import cdtype, normal, pdtype, rms_norm, zeros
+from .spmd import depthwise_conv1d, trips
 
 
 class SSM(nn.Module):
@@ -54,7 +55,7 @@ def _causal_conv(x, w, b):
     (cross-correlation, as XLA's convolution) over a left-padded input."""
     W, C = w.shape
     xp = F.pad(x.transpose(1, 2), (W - 1, 0))  # [B, C, T+W-1]
-    out = F.conv1d(xp, w.T[:, None, :], groups=C)  # weight [C, 1, W]
+    out = depthwise_conv1d(xp, w.T[:, None, :], groups=C)  # weight [C, 1, W]
     return out.transpose(1, 2) + b
 
 
@@ -120,7 +121,7 @@ def ssm_block(p: SSM, x: torch.Tensor, cfg: ModelConfig, state: dict | None = No
         (B, nh, hp, ds), dtype=torch.float32, device=x.device)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
     ys = []
-    for c in range(nc):
+    for c in trips(nc, x):
         xc, Bcc, Ccc, dtc, lac = xh[:, c], Bb[:, c], Cb[:, c], dtb[:, c], lab[:, c]
         la = torch.cumsum(lac, dim=1)  # inclusive cumulative log-decay [B,Q,nh]
         # inter-chunk: y_inter[i] = exp(la_i) * C_i · h
@@ -140,6 +141,7 @@ def ssm_block(p: SSM, x: torch.Tensor, cfg: ModelConfig, state: dict | None = No
             "bqh,bqs,bqhp->bhps", w, Bcc, xc)
         ys.append(y_inter + y_intra)
 
+    ys += ys[-1:] * (nc - len(ys))  # counted on meta tensors: one trip
     y = torch.stack(ys, dim=1).reshape(B, Tp, nh, hp)[:, :T]
     y = y + p.D[None, None, :, None] * xh.reshape(B, Tp, nh, hp)[:, :T]
     y = y.reshape(B, T, di).to(dt_)

@@ -29,6 +29,8 @@ from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .layers import MLP, Embed, apply_mlp, embed_tokens, init_rms_norm, lm_head, pdtype, rms_norm
+from . import spmd
+from .spmd import match_layout
 
 ATTN_KINDS = ("global", "local", "cross", "moe")
 
@@ -140,23 +142,23 @@ def apply_layer(
             p.attn, rms_norm(x, p.attn_norm, cfg.norm_eps), cfg, a_kind, positions,
             cross_embeds=cross_embeds, cache=cache, decode_pos=decode_pos,
         )
-        x = x + h
+        x = x + match_layout(h, x)
         hn = rms_norm(x, p.mlp_norm, cfg.norm_eps)
         if kind == "moe":
             h2, aux = moe_mod.apply_moe(p.moe, hn, cfg)
         else:
             h2 = apply_mlp(p.mlp, hn, cfg)
-        return x + h2, new_cache, aux
+        return x + match_layout(h2, x), new_cache, aux
     if kind == "ssm":
         h, new_state = ssm_mod.ssm_block(p.ssm, rms_norm(x, p.norm, cfg.norm_eps), cfg,
                                          state=cache)
-        return x + h, new_state, aux
+        return x + match_layout(h, x), new_state, aux
     if kind == "rec":
         h, new_state = rglru_mod.rglru_block(p.rec, rms_norm(x, p.norm, cfg.norm_eps), cfg,
                                              state=cache)
-        x = x + h
+        x = x + match_layout(h, x)
         h2 = apply_mlp(p.mlp, rms_norm(x, p.mlp_norm, cfg.norm_eps), cfg)
-        return x + h2, new_state, aux
+        return x + match_layout(h2, x), new_state, aux
     raise ValueError(kind)
 
 
@@ -190,7 +192,7 @@ def _trunk(params: Transformer, tokens, cfg: ModelConfig, *, cross_embeds, cache
     """Every layer and the final norm → (x [B,T,d], aux, new_caches)."""
     T = tokens.shape[1]
     dev = tokens.device
-    x = embed_tokens(params.embed, tokens, cfg)
+    x = match_layout(embed_tokens(params.embed, tokens, cfg), tokens)
     if decode_pos is not None:
         positions = torch.zeros((T,), dtype=torch.int32, device=dev)  # unused in decode
     else:
@@ -204,6 +206,7 @@ def _trunk(params: Transformer, tokens, cfg: ModelConfig, *, cross_embeds, cache
             layer, x, layer.kind, cfg, positions, cross_embeds=cross_embeds,
             cache=None if caches is None else caches[i], decode_pos=decode_pos,
         )
+        x = match_layout(x, tokens)
         if new_caches is not None:
             new_caches.append({} if nc is None else nc)
         if "load_balance_loss" in aux:
@@ -237,8 +240,8 @@ def loss_fn(params: Transformer, batch: dict, cfg: ModelConfig, lb_coef: float =
     logits, aux, _ = forward(params, batch["tokens"], cfg, cross_embeds=batch.get("cross_embeds"))
     labels = batch["labels"]
     valid = (labels >= 0).float()
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    logp = spmd.log_softmax(logits.float())
+    ll = spmd.pick(logp, labels.clamp(min=0).long())
     ce = -(ll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
     loss = ce + lb_coef * aux["load_balance_loss"]
     return loss, {"ce": ce, **aux}

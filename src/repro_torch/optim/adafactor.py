@@ -14,6 +14,7 @@ new first axis, with their state kept under the entry's key
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from .adamw import Optimizer, step_counter
 
@@ -85,6 +86,9 @@ def adafactor(
             if weight_decay:
                 u = u + weight_decay * _gather(params, key, names).float()
             upd = (-lr * u).to(params[names[0]].dtype)
+            if isinstance(upd, DTensor):  # a stack is split only as its parameters are
+                upd = upd.redistribute(upd.device_mesh, [Replicate() if pl.is_partial() else pl
+                                                         for pl in g32.placements])
             updates.update(zip(names, upd.unbind(0)) if key in stacks else [(key, upd)])
         return updates, {"s": state["s"], "step": step}
 
