@@ -62,7 +62,18 @@ time, peak memory (reckoned before the run, then measured) and the loss
 near ln V at step 0; then ``train_loop`` with an injected fault resumes
 from its checkpoint, a fresh run resumes cold, and
 ``examples/torch_train_lm.py`` trains on the card with its loss going
-down.  It prints one JSON line of kernels, with the registers and stack
+down.  The scale-out phase comes last, its counts also set to 0 before it
+and required 0 after: ``make_host_mesh()`` starts a process group of one
+NCCL rank; every smoke arch served greedily through ``ServeEngine.build(...,
+mesh=mesh)`` gives the meshless engine's tokens, and two float32 AdamW
+steps of stablelm-3b at full width, depth 2, through ``build_run(...,
+mesh=mesh)`` agree with the meshless run (loss within ``TRAIN_LOSS_RTOL``,
+parameters within ``SCALE_PARAM_TOL`` of their largest);
+``compressed_psum_mean`` runs over every gradient leaf of stablelm-3b at
+full width, timed by CUDA events beside its bytes bound, its largest leaf
+bit-equal to the CPU's; the dry run of ``DRYRUN_CELLS`` on the fake 16x16
+mesh runs in subprocesses and feeds the roofline table and the offload
+report.  It prints one JSON line of kernels, with the registers and stack
 frame of each read from the built library, and, last, ``{"ok": true,
 "device": {...}}``.  Any failed check raises; nothing falls back to the CPU
 or to a plain version.  Imports nothing of

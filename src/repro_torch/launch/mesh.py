@@ -83,22 +83,28 @@ def make_production_mesh(*, multi_pod: bool = False) -> DeviceMesh:
 
 def make_host_mesh(data: int = 1, model: int = 1, device=None) -> DeviceMesh:
     """A ``("data", "model")`` mesh over the ranks of the default process
-    group, clamped to the ranks there are.  With no group it starts one of a
-    single rank: NCCL on the card (``device=None``; ``RuntimeError`` without
-    one), gloo for ``device="cpu"``."""
+    group, each axis clamped to the ranks there are.  With no group it
+    starts one of a single rank: NCCL on the card (``device=None``;
+    ``RuntimeError`` without one), gloo for ``device="cpu"``.  The mesh
+    must hold every rank of the group."""
     device = resolve_device(device)
     if not dist.is_initialized():
         _ensure_group("nccl" if device.type == "cuda" else "gloo", 1)
     n = dist.get_world_size()
     data = min(data, n)
     model = min(model, max(1, n // data))
+    if data * model != n:
+        raise ValueError(f"a {data}x{model} mesh does not hold the group's {n} ranks")
     if device.type == "cuda":
         torch.cuda.set_device(dist.get_rank() % torch.cuda.device_count())
-    if data * model == n:
-        return init_device_mesh(device.type, (data, model), mesh_dim_names=("data", "model"))
-    # fewer ranks than the group has: the mesh takes the first data·model
-    return DeviceMesh(device.type, torch.arange(data * model).reshape(data, model),
-                      mesh_dim_names=("data", "model"))
+    return init_device_mesh(device.type, (data, model), mesh_dim_names=("data", "model"))
+
+
+def check_device(mesh: DeviceMesh, device: torch.device) -> None:
+    """A model on ``device`` can be placed on ``mesh``."""
+    if mesh.device_type != device.type:
+        raise ValueError(f"a mesh of {mesh.device_type!r} devices cannot hold a model on "
+                         f"{device}")
 
 
 def mesh_axis_sizes(mesh: DeviceMesh) -> dict[str, int]:

@@ -25,6 +25,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.mesh import check_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.spmd import full, on_mesh
 from repro_torch.parallel import sharding
@@ -61,7 +62,7 @@ class ServeEngine:
         scfg = steps_mod.serve_config(cfg)
         params = tfm.init_params(scfg, seed, device)
         if mesh is not None:
-            _check_mesh(mesh, device)
+            check_device(mesh, device)
             sharding.distribute_params(
                 params, sharding.param_specs(params.state_dict(), scfg, mesh=mesh), mesh)
         return cls(cfg=scfg, params=params, max_seq=max_seq, device=device, mesh=mesh)
@@ -104,12 +105,6 @@ class ServeEngine:
         if self.mesh is None:
             return t
         return sharding.place(t, self.mesh, sharding.batch_specs(t, mesh=self.mesh))
-
-
-def _check_mesh(mesh, device: torch.device) -> None:
-    if mesh.device_type != device.type:
-        raise ValueError(f"a mesh of {mesh.device_type!r} devices cannot hold a model on "
-                         f"{device}")
 
 
 def _sample(logits: torch.Tensor, generator: torch.Generator, temperature: float):

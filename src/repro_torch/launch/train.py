@@ -22,6 +22,7 @@ from repro_torch.checkpoint import store
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import DataConfig, SyntheticStream
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.mesh import check_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.spmd import full, on_mesh
 from repro_torch.parallel import sharding
@@ -63,9 +64,7 @@ def build_run(cfg, optimizer_name="adamw", seed=0, device=None, mesh=None,
     opt_state = optimizer.init(dict(params.named_parameters()))
     step_fn = steps_mod.make_train_step(cfg, optimizer)
     if mesh is not None:
-        if mesh.device_type != device.type:
-            raise ValueError(f"a mesh of {mesh.device_type!r} devices cannot hold a model on "
-                             f"{device}")
+        check_device(mesh, device)
         sharding.distribute_params(
             params, sharding.param_specs(params.state_dict(), cfg, fsdp=fsdp, mesh=mesh), mesh)
         specs = sharding.param_specs(opt_state, cfg, fsdp=fsdp, mesh=mesh)

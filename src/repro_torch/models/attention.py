@@ -209,7 +209,7 @@ def attention_block(
     layer keeps no cache: its k/v come from ``cross_embeds`` every step.
     """
     dt = cdtype(cfg)
-    B, T, _ = x.shape
+    T = x.shape[1]
     window = cfg.window if kind == "local" else 0
 
     if cache is not None and decode_pos is not None and kind != "cross":

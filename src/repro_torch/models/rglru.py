@@ -20,7 +20,7 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 
 from .layers import cdtype, gelu, normal, pdtype, zeros
-from .spmd import depthwise_conv1d
+from .spmd import depthwise_conv1d, pad
 
 _C = 8.0  # Griffin's recurrence-gate sharpness constant
 
@@ -87,9 +87,7 @@ def rglru_block(p: RGLRU, x: torch.Tensor, cfg: ModelConfig, state: dict | None 
         return out, {"conv": window[:, 1:], "h": h}
 
     # prefill / train: causal depthwise conv then the scan over T
-    xp = F.pad(xb, (0, 0, W - 1, 0))
-    if state is not None:
-        xp[:, : W - 1] = state["conv"]
+    xp = pad(xb, (0, 0, W - 1, 0)) if state is None else torch.cat([state["conv"], xb], dim=1)
     xc = depthwise_conv1d(xp.transpose(1, 2), p.conv_w.to(dt_).T[:, None, :], groups=w)
     xc = xc.transpose(1, 2) + p.conv_b.to(dt_)
     xc32 = xc.float()

@@ -2,17 +2,22 @@
 model code runs on plain tensors and, with parameters placed on a mesh
 (``repro_torch.parallel.sharding``), on DTensors.
 
-DTensor propagates most ops by itself.  Five do not go through as
+DTensor propagates most ops by itself.  Seven do not go through as
 written, and here each is computed on the local shards explicitly:
 
-* the residual stream, which each layer would leave in whatever layout
-  its last op chose (and a lookup in a vocabulary-sharded table with sums
-  that may be reduced once only), is brought back to the tokens' layout
-  (:func:`match_layout`);
+* the residual stream, which each block would leave in whatever layout its
+  last op chose, is kept in the tokens' layout: the embedding's output
+  (a lookup in a vocabulary-sharded table, with sums that may be reduced
+  once only) is brought to it, and each block's output to the stream's
+  before the add (:func:`match_layout`);
 * a head split of a projection whose head count the mesh does not divide
   (:func:`split_heads`, :func:`merge_heads`), and the grouped-query
   attention itself (:func:`local_heads`);
-* a depthwise convolution over sharded channels (:func:`depthwise_conv1d`);
+* Mamba-2's chunk scan, which runs on each device's heads
+  (:func:`scan_heads`);
+* a depthwise convolution over sharded channels (:func:`depthwise_conv1d`),
+  and zero padding, which DTensor's own rule may place wrongly on a mesh of
+  more than one dim (:func:`pad`);
 * the loss's ``log_softmax`` over vocabulary-parallel logits, which
   DTensor would gather whole (:func:`log_softmax`), and its pick of the
   labels' entries (:func:`pick`).
@@ -132,10 +137,15 @@ def pick(logp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     vocabulary-parallel DTensor logits each shard keeps its own labels'
     entries and the sums are reduced (a gather's backward would gather the
     logits' gradient whole)."""
-    if not isinstance(logp, DTensor) or not _sharding(logp, -1):
+    if not _vocab_split(logp):
         return torch.gather(logp, -1, labels[..., None])[..., 0]
     vocab = torch.arange(logp.shape[-1], device=logp.device)
     return _LayoutGrad.apply(settle(torch.where(vocab == labels[..., None], logp, 0.0).sum(dim=-1)))
+
+
+def _vocab_split(x: torch.Tensor) -> bool:
+    """Whether ``x``'s last dim is split over more than one device."""
+    return isinstance(x, DTensor) and _ways(x, _sharding(x, -1)) > 1
 
 
 def settle(x: torch.Tensor) -> torch.Tensor:
@@ -148,7 +158,7 @@ def log_softmax(x: torch.Tensor) -> torch.Tensor:
     """``log_softmax`` over the last dim.  For a DTensor split on that dim
     (vocabulary-parallel logits) it is taken from the shards' maxima and
     sums, so the logits are never gathered."""
-    if not isinstance(x, DTensor) or not _sharding(x, -1):
+    if not _vocab_split(x):
         return torch.log_softmax(x, dim=-1)
     m = settle(x.detach().amax(dim=-1, keepdim=True))
     lse = m + torch.log(settle(torch.exp(x - m).sum(dim=-1, keepdim=True)))
@@ -224,6 +234,56 @@ def local_heads(q, k, v, cache: dict | None):
                                   shape=q.shape, stride=q.stride())
 
     return ql, kl, vl, local_cache, expand, wrap
+
+
+def scan_heads(scan, xh, bc, cc, dt, la, h):
+    """``scan(xh, bc, cc, dt, la, h) → (y, h)``, the SSD chunk scan, on each
+    device's heads.  For DTensors: the batch as ``xh``'s, the heads (xh
+    [B,T,nh,hp], dt and la [B,T,nh], h [B,nh,hp,ds]) split over every other
+    mesh dim whose size divides them, B and C [B,T,ds] whole; heads are
+    independent in the scan, so each device scans its own."""
+    if not isinstance(xh, DTensor):
+        return scan(xh, bc, cc, dt, la, h)
+    mesh = xh.device_mesh
+    batch = _sharding(xh, 0)
+    heads, ways = [], 1
+    for i in range(mesh.ndim):
+        if i not in batch and xh.shape[2] % (ways * mesh.size(i)) == 0:
+            heads.append(i)
+            ways *= mesh.size(i)
+
+    def layout(head_dim):
+        return [Shard(0) if i in batch else Shard(head_dim) if head_dim and i in heads
+                else Replicate() for i in range(mesh.ndim)]
+
+    def local(t, head_dim):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        return t.redistribute(mesh, layout(head_dim)).to_local()
+
+    y, h_out = scan(local(xh, 2), local(bc, None), local(cc, None), local(dt, 2), local(la, 2),
+                    local(h, 1))
+    B, T, nh, hp = xh.shape
+    return tuple(DTensor.from_local(t, mesh, layout(hd), run_check=False, shape=torch.Size(shape),
+                                    stride=_contiguous(shape))
+                 for t, hd, shape in ((y, 2, (B, T, nh, hp)), (h_out, 1, (B, nh, hp, bc.shape[-1]))))
+
+
+def pad(x: torch.Tensor, widths: tuple) -> torch.Tensor:
+    """``F.pad(x, widths)`` with zeros.  A DTensor is padded shard by shard
+    (its padded dims gathered first if they are split), not through
+    DTensor's own rule for the op."""
+    if not isinstance(x, DTensor):
+        return F.pad(x, widths)
+    dims = [x.ndim - 1 - i for i in range(len(widths) // 2)]
+    split = [i for d in dims for i in _sharding(x, d)]
+    if split:
+        x = x.redistribute(x.device_mesh, _replace(x, split, Replicate()))
+    shape = list(x.shape)
+    for i, d in enumerate(dims):
+        shape[d] += widths[2 * i] + widths[2 * i + 1]
+    return DTensor.from_local(F.pad(x.to_local(), widths), x.device_mesh, x.placements,
+                              run_check=False, shape=torch.Size(shape), stride=_contiguous(shape))
 
 
 def depthwise_conv1d(x: torch.Tensor, w: torch.Tensor, *, groups: int) -> torch.Tensor:

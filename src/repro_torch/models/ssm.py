@@ -9,6 +9,8 @@ before the output projection.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -16,7 +18,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 
 from .layers import cdtype, normal, pdtype, rms_norm, zeros
-from .spmd import depthwise_conv1d, trips
+from .spmd import depthwise_conv1d, scan_heads, trips
+from .spmd import pad as spmd_pad
 
 
 class SSM(nn.Module):
@@ -54,7 +57,7 @@ def _causal_conv(x, w, b):
     """Depthwise causal conv: x [B,T,C], w [W,C] — a grouped ``F.conv1d``
     (cross-correlation, as XLA's convolution) over a left-padded input."""
     W, C = w.shape
-    xp = F.pad(x.transpose(1, 2), (W - 1, 0))  # [B, C, T+W-1]
+    xp = spmd_pad(x.transpose(1, 2), (W - 1, 0))  # [B, C, T+W-1]
     out = depthwise_conv1d(xp, w.T[:, None, :], groups=C)  # weight [C, 1, W]
     return out.transpose(1, 2) + b
 
@@ -102,26 +105,45 @@ def ssm_block(p: SSM, x: torch.Tensor, cfg: ModelConfig, state: dict | None = No
     dt = F.softplus(dtp.float() + p.dt_bias)  # [B,T,nh]
     logdA = dt * A  # [B,T,nh], <= 0
 
-    Q = min(cfg.ssm_chunk, T)
+    h = state["h"].float() if state is not None else torch.zeros(
+        (B, nh, hp, ds), dtype=torch.float32, device=x.device)
+    xh = xin_c.reshape(B, T, nh, hp).float()
+    y, h = scan_heads(functools.partial(_ssd_scan, Q=min(cfg.ssm_chunk, T)),
+                      xh, Bc_c, Cc_c, dt, logdA, h)
+    y = y + p.D[None, None, :, None] * xh
+    y = y.reshape(B, T, di).to(dt_)
+    y = rms_norm(y * F.silu(z), p.norm_w, cfg.norm_eps)
+    out = y @ p.w_out.to(dt_)
+
+    new_state = None
+    if state is not None:
+        conv_tail = conv_in[:, -(W - 1):] if T >= W - 1 else torch.cat(
+            [state["conv"][:, T:], conv_in], dim=1)
+        new_state = {"conv": conv_tail, "h": h}
+    return out, new_state
+
+
+def _ssd_scan(xh, Bc, Cc, dt, logdA, h, *, Q: int):
+    """The chunked SSD scan: xh [B,T,nh,hp], Bc/Cc [B,T,ds], dt/logdA
+    [B,T,nh] (float32), h [B,nh,hp,ds] carried in → (y [B,T,nh,hp], h)."""
+    B, T, nh, hp = xh.shape
+    ds = Bc.shape[-1]
     pad = (-T) % Q
     if pad:
-        xin_c, Bc_c, Cc_c, dt, logdA = (F.pad(t, (0, 0, 0, pad))
-                                         for t in (xin_c, Bc_c, Cc_c, dt, logdA))
+        xh, Bc, Cc, dt, logdA = (F.pad(t, (0, 0) * (t.ndim - 2) + (0, pad))
+                                 for t in (xh, Bc, Cc, dt, logdA))
     Tp = T + pad
     nc = Tp // Q
-
-    xh = xin_c.reshape(B, nc, Q, nh, hp).float()
-    Bb = Bc_c.reshape(B, nc, Q, ds)
-    Cb = Cc_c.reshape(B, nc, Q, ds)
+    xh = xh.reshape(B, nc, Q, nh, hp)
+    Bb = Bc.reshape(B, nc, Q, ds)
+    Cb = Cc.reshape(B, nc, Q, ds)
     dtb = dt.reshape(B, nc, Q, nh)
     lab = logdA.reshape(B, nc, Q, nh)
 
     # loop over chunks; carry h [B, nh, hp, ds]
-    h = state["h"].float() if state is not None else torch.zeros(
-        (B, nh, hp, ds), dtype=torch.float32, device=x.device)
-    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xh.device))
     ys = []
-    for c in trips(nc, x):
+    for c in trips(nc, xh):
         xc, Bcc, Ccc, dtc, lac = xh[:, c], Bb[:, c], Cb[:, c], dtb[:, c], lab[:, c]
         la = torch.cumsum(lac, dim=1)  # inclusive cumulative log-decay [B,Q,nh]
         # inter-chunk: y_inter[i] = exp(la_i) * C_i · h
@@ -142,18 +164,7 @@ def ssm_block(p: SSM, x: torch.Tensor, cfg: ModelConfig, state: dict | None = No
         ys.append(y_inter + y_intra)
 
     ys += ys[-1:] * (nc - len(ys))  # counted on meta tensors: one trip
-    y = torch.stack(ys, dim=1).reshape(B, Tp, nh, hp)[:, :T]
-    y = y + p.D[None, None, :, None] * xh.reshape(B, Tp, nh, hp)[:, :T]
-    y = y.reshape(B, T, di).to(dt_)
-    y = rms_norm(y * F.silu(z), p.norm_w, cfg.norm_eps)
-    out = y @ p.w_out.to(dt_)
-
-    new_state = None
-    if state is not None:
-        conv_tail = conv_in[:, -(W - 1):] if T >= W - 1 else torch.cat(
-            [state["conv"][:, T:], conv_in], dim=1)
-        new_state = {"conv": conv_tail, "h": h}
-    return out, new_state
+    return torch.stack(ys, dim=1).reshape(B, Tp, nh, hp)[:, :T], h
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, device=None) -> dict:

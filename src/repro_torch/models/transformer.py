@@ -30,7 +30,6 @@ from . import rglru as rglru_mod
 from . import ssm as ssm_mod
 from .layers import MLP, Embed, apply_mlp, embed_tokens, init_rms_norm, lm_head, pdtype, rms_norm
 from . import spmd
-from .spmd import match_layout
 
 ATTN_KINDS = ("global", "local", "cross", "moe")
 
@@ -142,23 +141,23 @@ def apply_layer(
             p.attn, rms_norm(x, p.attn_norm, cfg.norm_eps), cfg, a_kind, positions,
             cross_embeds=cross_embeds, cache=cache, decode_pos=decode_pos,
         )
-        x = x + match_layout(h, x)
+        x = x + spmd.match_layout(h, x)
         hn = rms_norm(x, p.mlp_norm, cfg.norm_eps)
         if kind == "moe":
             h2, aux = moe_mod.apply_moe(p.moe, hn, cfg)
         else:
             h2 = apply_mlp(p.mlp, hn, cfg)
-        return x + match_layout(h2, x), new_cache, aux
+        return x + spmd.match_layout(h2, x), new_cache, aux
     if kind == "ssm":
         h, new_state = ssm_mod.ssm_block(p.ssm, rms_norm(x, p.norm, cfg.norm_eps), cfg,
                                          state=cache)
-        return x + match_layout(h, x), new_state, aux
+        return x + spmd.match_layout(h, x), new_state, aux
     if kind == "rec":
         h, new_state = rglru_mod.rglru_block(p.rec, rms_norm(x, p.norm, cfg.norm_eps), cfg,
                                              state=cache)
-        x = x + match_layout(h, x)
+        x = x + spmd.match_layout(h, x)
         h2 = apply_mlp(p.mlp, rms_norm(x, p.mlp_norm, cfg.norm_eps), cfg)
-        return x + match_layout(h2, x), new_state, aux
+        return x + spmd.match_layout(h2, x), new_state, aux
     raise ValueError(kind)
 
 
@@ -192,7 +191,7 @@ def _trunk(params: Transformer, tokens, cfg: ModelConfig, *, cross_embeds, cache
     """Every layer and the final norm → (x [B,T,d], aux, new_caches)."""
     T = tokens.shape[1]
     dev = tokens.device
-    x = match_layout(embed_tokens(params.embed, tokens, cfg), tokens)
+    x = spmd.match_layout(embed_tokens(params.embed, tokens, cfg), tokens)
     if decode_pos is not None:
         positions = torch.zeros((T,), dtype=torch.int32, device=dev)  # unused in decode
     else:
@@ -206,7 +205,6 @@ def _trunk(params: Transformer, tokens, cfg: ModelConfig, *, cross_embeds, cache
             layer, x, layer.kind, cfg, positions, cross_embeds=cross_embeds,
             cache=None if caches is None else caches[i], decode_pos=decode_pos,
         )
-        x = match_layout(x, tokens)
         if new_caches is not None:
             new_caches.append({} if nc is None else nc)
         if "load_balance_loss" in aux:

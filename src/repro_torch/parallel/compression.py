@@ -23,12 +23,19 @@ import torch.distributed as dist
 CHUNK = 256  # per-scale quantization group
 
 
+def _exact(divisor: float, like: torch.Tensor) -> torch.Tensor:
+    """A divisor as a float32 tensor on ``like``'s device: CUDA divides by a
+    Python number as a product with its reciprocal, which may round
+    otherwise than the division the reference (and the CPU) takes."""
+    return torch.tensor(float(divisor), dtype=torch.float32, device=like.device)
+
+
 def _quantize_rows(x: torch.Tensor):
     """x: [R, M] fp32, M % CHUNK == 0 → (int8 [R, M], scales [R, M/CHUNK]).
     Rounds half to even, as ``jnp.round``."""
     R, M = x.shape
     xp = x.reshape(R, M // CHUNK, CHUNK)
-    scale = torch.clamp(xp.abs().amax(dim=-1), min=1e-12) / 127.0
+    scale = torch.clamp(xp.abs().amax(dim=-1), min=1e-12) / _exact(127.0, x)
     q = torch.clamp(torch.round(xp / scale[..., None]), -127, 127).to(torch.int8)
     return q.reshape(R, M), scale.float()
 
@@ -60,7 +67,7 @@ def compressed_psum_mean(g: torch.Tensor, err: torch.Tensor, group=None):
     q_x, s_x = torch.empty_like(q), torch.empty_like(s)
     dist.all_to_all_single(q_x, q, group=group)
     dist.all_to_all_single(s_x, s, group=group)
-    own = _dequantize_rows(q_x, s_x).sum(dim=0) / D  # [seg]
+    own = _dequantize_rows(q_x, s_x).sum(dim=0) / _exact(D, g)  # [seg]
 
     # requantize the reduced segment and all-gather it back
     q2, s2 = _quantize_rows(own[None, :])
@@ -76,4 +83,4 @@ def uncompressed_psum_mean(g: torch.Tensor, group=None):
     """The float32 mean of ``g`` over ``group`` by one all-reduce."""
     out = g.float().clone()
     dist.all_reduce(out, group=group)
-    return out / dist.get_world_size(group)
+    return out / _exact(dist.get_world_size(group), g)

@@ -13,7 +13,6 @@ reference's leading stacked dimension.
 
 from __future__ import annotations
 
-import math
 import re
 
 import torch
@@ -101,16 +100,12 @@ def _map_with_path(fn, tree, path=()):
     return fn("/".join(path).replace(".", "/"), tree)
 
 
-def mesh_sizes(mesh: DeviceMesh | None) -> dict[str, int]:
-    return {} if mesh is None else dict(zip(mesh.mesh_dim_names, mesh.shape))
-
-
 def sanitize_spec(spec: P, shape, mesh: DeviceMesh | None) -> P:
     """Specs must tile evenly: drop (replicate) any axis whose size doesn't
     divide the dim (e.g. mamba2's vocab 50280 on a 16-way model axis)."""
     if mesh is None:
         return spec
-    sizes = mesh_sizes(mesh)
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     out = []
     for i, entry in enumerate(tuple(spec)):
         if entry is None or i >= len(shape):
@@ -180,32 +175,24 @@ def cache_specs(caches, cfg: ModelConfig, mesh: DeviceMesh | None = None):
 
     def spec_for(s, leaf):
         ndim = len(leaf.shape)
-        stacked = "units" in s
-        off = 1 if stacked else 0
+        tup = [None] * ndim
         if s.endswith("/pos"):
-            return P(*([None] * ndim))
+            return P(*tup)
         if s.endswith(("/k", "/v", "/k_scale", "/v_scale")):
-            # [*, B, S, K, hd] (scales: [*, B, S, K])
-            tup = [None] * ndim
-            tup[off] = BATCH_AXES
+            # [B, S, K, hd] (scales: [B, S, K])
+            tup[0] = BATCH_AXES
             if cfg.shard_mode == "dp_sp":
-                tup[off + 1] = "model"  # cache sequence-sharded
+                tup[1] = "model"  # cache sequence-sharded
             else:
-                tup[off + 2] = "model"  # cache kv-head-sharded
-            return P(*tup)
-        if s.endswith("/conv"):
-            # [*, B, W-1, C]: batch only (C is a z/B/C concat; keep replicated)
-            tup = [None] * ndim
-            tup[off] = BATCH_AXES
-            return P(*tup)
-        if s.endswith("/h"):
-            # ssm [*, B, nh, hp, ds] / rec [*, B, w]: shard heads/width on model
-            tup = [None] * ndim
-            tup[off] = BATCH_AXES
-            if ndim - off >= 2:
-                tup[off + 1] = "model"
-            return P(*tup)
-        return P(*([None] * ndim))
+                tup[2] = "model"  # cache kv-head-sharded
+        elif s.endswith("/conv"):
+            # [B, W-1, C]: batch only (C is a z/B/C concat; keep replicated)
+            tup[0] = BATCH_AXES
+        elif s.endswith("/h"):
+            # ssm [B, nh, hp, ds] / rec [B, w]: shard heads/width on model
+            tup[0] = BATCH_AXES
+            tup[1] = "model"
+        return P(*tup)
 
     return _map_with_path(lambda s, leaf: sanitize_spec(spec_for(s, leaf), leaf.shape, mesh),
                           caches)
@@ -282,16 +269,3 @@ def distribute_params(module: nn.Module, specs: dict, mesh: DeviceMesh) -> nn.Mo
                                         requires_grad=p.requires_grad))
     return module
 
-
-def local_bytes(tree) -> int:
-    """Bytes of the shards this rank holds (DTensors) or of the tensors."""
-    total = 0
-
-    def add(_, t):
-        nonlocal total
-        t = t.to_local() if isinstance(t, DTensor) else t
-        total += math.prod(t.shape) * t.element_size()
-        return t
-
-    _map_with_path(add, tree)
-    return total

@@ -6,7 +6,8 @@ relative, every parameter within 1e-4 of its largest, as ``PERF.md`` §2
 bounds card against CPU); a checkpoint saved from the 2×2 mesh restored by
 ``restore_onto_mesh`` onto 1×1 and 1×4, equal leaf by leaf (exactly);
 ``plan_rescale`` field-equal to the reference's; and ``make_host_mesh``
-with no card raising ``RuntimeError``."""
+with no card raising ``RuntimeError``, and ``ValueError`` for a mesh that
+does not hold every rank."""
 
 import dataclasses
 import json
@@ -140,6 +141,11 @@ init()
 cfg = dataclasses.replace(get_smoke_config("stablelm_3b"), compute_dtype="float32")
 mesh = make_host_mesh(2, 2, device="cpu")
 assert mesh.shape == (2, 2)
+try:
+    make_host_mesh(1, 2, device="cpu")  # two of the four ranks
+    partial_mesh_refused = False
+except ValueError:
+    partial_mesh_refused = True
 run = train.build_run(cfg, "adamw", device="cpu", mesh=mesh)
 batch = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4)).next_batch(0)
 _, _, metrics = run.step_fn(run.params, run.opt_state, batch)
@@ -157,7 +163,7 @@ if RANK == 0:
     import json
     np.savez(os.path.join(OUT, "step.npz"), loss=float(metrics["loss"]), **full)
     with open(os.path.join(OUT, "restored14.json"), "w") as f:
-        json.dump({"same": same, "local": local}, f)
+        json.dump({"same": same, "local": local, "refused": partial_mesh_refused}, f)
 dist.destroy_process_group()
 """
 
@@ -176,7 +182,7 @@ def test_2x2_gloo_train_step_equals_unsharded_and_restores_onto_other_meshes(tmp
     # 2×2 → 1×4: every leaf equal, wq split 4 ways on its columns, the table on its rows
     with open(os.path.join(out, "restored14.json")) as f:
         restored = json.load(f)
-    assert restored["same"]
+    assert restored["same"] and restored["refused"]
     d, hd = cfg.d_model, cfg.n_heads * cfg.hd
     assert restored["local"]["layers.0.attn.wq"] == [d, hd // 4]
     assert restored["local"]["embed.tok"] == [cfg.vocab // 4, d]
