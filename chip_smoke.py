@@ -37,17 +37,21 @@ than the loop kernel on the f32 MAC), writing
 every kernel count set to 0 before it (it must launch none of the port's
 kernels): each arch's smoke config in float32, and gemma2-27b at full width
 and depth 2, run prefill and greedy decode on the card and on the CPU with
-the same weights through the serving engine's loop (logits within
-``SERVE_TOL`` of the largest, tokens equal), and each smoke config at its
+the same weights through the serving engine's loop (on the card its
+captured decode step; logits within ``SERVE_TOL`` of the largest, tokens
+equal), and each smoke config at its
 default dtypes (bf16 compute) runs the forward and prefill plus
 teacher-forced decode on both (each position within ``SERVE_BF16_TOL``);
 then gemma2-27b at full width and depth (``serve_config``: bf16,
 50.7 GiB of weights from seed 0) serves request set A (batch 4, prompt
 512, 32 tokens: greedy twice, equal; then at temperature 0.8) and set B
 (batch 1, a 4352-token prompt past the 4096 window, 8 tokens), each with
-prefill and decode time by CUDA events, the host clock and the enqueue
-time beside its bound, device-busy time, peak memory, decode parity
-(prefill P−1 plus a decode step against prefill P) and the Fig 8 verdict;
+prefill time by CUDA events, the host clock and the enqueue time beside
+its bound, and decode time so measured twice, eager (the step functions)
+and graphed (the engine's captured step), with the host's launches and the
+device-busy time of a step (greedy tokens equal between the two, logits
+within ``SERVE_PARITY_TOL``), peak memory, decode parity (prefill P−1 plus
+a decode step against prefill P) and the Fig 8 verdict;
 then ``examples/torch_serve_decode.py`` on the card.  The LM training
 phase follows, its counts also set to 0 before it and required 0 after:
 each smoke arch in float32, and stablelm-3b at full width and depth 2 on
@@ -56,10 +60,14 @@ step on the card and on the CPU from the same weights (loss within
 ``TRAIN_LOSS_RTOL``, each gradient within ``SERVE_TOL`` of its largest);
 stablelm-3b at full width and depth (float32 parameters, bf16 compute,
 ``remat="full"``, AdamW, clip 1.0) trains on one 4096-token sequence a step,
-one warm-up and two timed steps by CUDA events, the host clock and the
-enqueue time beside the step's bound (``train_bound``), with device-busy
-time, peak memory (reckoned before the run, then measured) and the loss
-near ln V at step 0; then ``train_loop`` with an injected fault resumes
+``TRAIN_STEPS`` steps compiled (``build_run``'s step: eager, then replays of
+the captured step) and as many eager on the same batches, each after its
+first step by CUDA events, the host clock and the enqueue time beside the
+step's bound (``train_bound``), the losses agreeing within
+``TRAIN_BF16_LOSS_RTOL``, with the capture time, the compiled step's
+device-busy time and host launches, peak memory (reckoned before the run,
+then measured) and the loss near ln V at step 0; then ``train_loop`` (on
+the compiled step) with an injected fault resumes
 from its checkpoint, a fresh run resumes cold, and
 ``examples/torch_train_lm.py`` trains on the card with its loss going
 down.  The scale-out phase comes last, its counts also set to 0 before it
@@ -113,6 +121,7 @@ from repro_torch.data.pipeline import DataConfig, SyntheticStream  # noqa: E402
 from repro_torch.kernels import _build, ops, pim_bitserial, pim_matmul  # noqa: E402
 from repro_torch.launch import steps as lm_steps  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
+from repro_torch.launch.graphs import GraphedTrainStep  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.serve import ServeEngine  # noqa: E402
 from repro_torch.parallel import compression  # noqa: E402
@@ -178,7 +187,9 @@ TRAIN_UNIT = (2, 128)  # the same for stablelm-3b at full width, depth 2
 # step (its global batch of 256 cut to 1: one card, no accumulation).
 TRAIN_ARCH = "stablelm_3b"
 TRAIN_SEQ = SHAPES["train_4k"].seq_len
-TRAIN_WARMUP, TRAIN_TIMED = 1, 2  # two timed steps keep the whole script near 6 minutes
+# Steps of each run (compiled and eager): the first is eager in both, the
+# later ones are timed; two timed eager steps keep the script near 5 minutes.
+TRAIN_STEPS = 3
 # Bytes a parameter: AdamW reads p, g, m, v and writes p, m, v (float32);
 # clipping reads g for the norm, then reads g and writes the scaled copy.
 ADAMW_BYTES, CLIP_BYTES = 28, 12
@@ -447,13 +458,16 @@ def cnn_logits_check(dev: torch.device) -> None:
         del model, ref_model, card
 
 
-def device_busy(step, reps: int) -> tuple[float, list[tuple[str, float]], float]:
+def device_busy(step, reps: int) -> tuple[float, list[tuple[str, float]], float, float]:
     """Device time of ``reps`` calls of ``step`` per call — the sum over the
     device-side events (kernels, copies, sets) ``torch.profiler`` saw (0.0
     if it saw none) — the three device events that took most of it (name,
-    ms per call), and the device events per call.  It records the device
-    activity alone: the host ops are not traced, which keeps a call of some
-    10^5 launches quick to profile."""
+    ms per call), the device events per call, and the host's launches per
+    call: the CUDA runtime and driver calls that launch a kernel or a graph
+    or start a copy or a set (a graph's replay is one launch for all its
+    kernels).  It records the device activity and those calls alone: the
+    host ops are not traced, which keeps a call of some 10^5 launches quick
+    to profile."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -461,10 +475,14 @@ def device_busy(step, reps: int) -> tuple[float, list[tuple[str, float]], float]
         for _ in range(reps):
             step()
         torch.cuda.synchronize()
-    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    averages = prof.key_averages()
+    device = [e for e in averages if e.device_type == DeviceType.CUDA]
     events = sorted(((e.key, e.self_device_time_total / 1e3 / reps) for e in device),
                     key=lambda kv: -kv[1])
-    return sum(ms for _, ms in events), events[:3], sum(e.count for e in device) / reps
+    launches = sum(e.count for e in averages if e.device_type == DeviceType.CPU
+                   and re.match(r"cu(da)?(LaunchKernel|GraphLaunch|Memcpy|Memset)", e.key))
+    return (sum(ms for _, ms in events), events[:3], sum(e.count for e in device) / reps,
+            launches / reps)
 
 
 def cnn_phase(dev: torch.device, smi: str) -> dict:
@@ -500,7 +518,7 @@ def cnn_phase(dev: torch.device, smi: str) -> dict:
                 enqueue_ms = (time.perf_counter() - t0) * 1e3 / CNN_STEP_REPS
                 torch.cuda.synchronize()
                 host_ms = (time.perf_counter() - t0) * 1e3 / CNN_STEP_REPS
-                busy_ms, top, _ = device_busy(step, 3)
+                busy_ms, top, _, _ = device_busy(step, 3)
                 peak = torch.cuda.max_memory_allocated() - held
                 torch.backends.cudnn.benchmark = True  # autotuned in cuda_ms's warm-up
                 tuned_ms = cuda_ms(step, CNN_STEP_REPS)
@@ -758,7 +776,8 @@ def serve_requests(engine, label: str, shape, dev, smi: str) -> dict:
     require(0 <= out.min() and out.max() < cfg.vocab, f"serve set {label}: token out of range")
     say(f"serve: set {label} (batch {B}, prompt {P}, gen {G}): two greedy runs token-equal, "
         f"prompts echoed; generate {generate_s:.3f} s by the host clock "
-        f"({B * G / generate_s:.1f} tok/s end to end); first row {out[0, P:].tolist()}")
+        f"({B * G / generate_s:.1f} tok/s end to end, the decode step's capture included); "
+        f"first row {out[0, P:].tolist()}")
     if label == "A":
         sampled = eng.generate(prompts, G, temperature=SERVE_TEMPERATURE, seed=SEED)
         require(np.array_equal(sampled[:, :P], prompts) and sampled.max() < cfg.vocab
@@ -774,7 +793,7 @@ def serve_requests(engine, label: str, shape, dev, smi: str) -> dict:
             lambda: eng.prefill_fn(eng.params, tokens, caches))  # noqa: B023
         prefill.append((ev, host, enq))
     require(bool(torch.isfinite(logits.float()).all()), f"serve set {label}: prefill logits")
-    pre_busy_ms, pre_top, pre_events = device_busy(
+    pre_busy_ms, pre_top, pre_events, _ = device_busy(
         lambda: eng.prefill_fn(eng.params, tokens, lm.init_caches(cfg, B, eng.max_seq, dev)), 1)
     top2 = logits.float().topk(2, dim=-1).values
     say(f"serve: set {label} last-position logits: max|logit| "
@@ -782,19 +801,42 @@ def serve_requests(engine, label: str, shape, dev, smi: str) -> dict:
         f"top-2 gap {float((top2[:, 0] - top2[:, 1]).min()):.3f} to "
         f"{float((top2[:, 0] - top2[:, 1]).max()):.3f} across the batch")
 
-    def decode_loop():
-        lg = logits
+    def decode_loop(step, lg):
+        """``G - 1`` greedy steps from the prefill's logits ``lg``: a copy of
+        each step's logits."""
+        seen = []
         for i in range(G - 1):
-            lg, _ = eng.decode_fn(eng.params, lg.argmax(dim=-1, keepdim=True), P + i, caches)
-        return lg
+            lg = step(lg.argmax(dim=-1, keepdim=True), P + i)
+            seen.append(lg.clone())
+        return seen
 
-    dec_ev, dec_host, dec_enq, last = timed(decode_loop)
-    require(bool(torch.isfinite(last.float()).all()), f"serve set {label}: decode logits")
+    # Eager: the step functions, op by op from the host.
+    dec_ev, dec_host, dec_enq, eager_seen = timed(lambda: decode_loop(
+        lambda tok, pos: eng.decode_fn(eng.params, tok, pos, caches)[0], logits))
     steps = G - 1
-    tok = last.argmax(dim=-1, keepdim=True)
-    busy_ms, top, n_events = device_busy(
+    tok = eager_seen[-1].argmax(dim=-1, keepdim=True)
+    busy_ms, top, n_events, launches = device_busy(
         lambda: eng.decode_fn(eng.params, tok, P + G - 1, caches), SERVE_BUSY_REPS)
-    del caches, logits, last
+    del caches, logits
+    # Compiled: the step the engine captured for batch B (the greedy runs
+    # above), replayed on its own caches, reset and prefilled here.
+    graphed = eng.graphs[(B, None)]
+    first, _ = eng.prefill_fn(eng.params, tokens, lm.reset_caches(graphed.caches))
+    g_ev, g_host, g_enq, graphed_seen = timed(lambda: decode_loop(graphed, first))
+    g_busy_ms, g_top, g_events, g_launches = device_busy(lambda: graphed(tok, P + G - 1),
+                                                         SERVE_BUSY_REPS)
+    for which, seen in (("eager", eager_seen), ("graphed", graphed_seen)):
+        require(all(bool(torch.isfinite(lg.float()).all()) for lg in seen),
+                f"serve set {label}: {which} decode logits")
+    eager_tok = torch.stack([lg.argmax(-1) for lg in eager_seen])
+    graphed_tok = torch.stack([lg.argmax(-1) for lg in graphed_seen])
+    require(torch.equal(graphed_tok, eager_tok), f"serve set {label}: graphed decode tokens "
+            f"{graphed_tok[:, 0].tolist()} != eager {eager_tok[:, 0].tolist()}")
+    vs_eager = max(float((g.float() - e.float()).abs().max() / e.float().abs().max())
+                   for g, e in zip(graphed_seen, eager_seen))
+    require(vs_eager <= SERVE_PARITY_TOL, f"serve set {label}: graphed decode logits off the "
+            f"eager step's by {vs_eager:.4g} x max|logit|")
+    del eager_seen, graphed_seen, first, graphed
 
     # decode parity: prefill P-1 plus one decode step against prefill P
     want, _ = eng.prefill_fn(eng.params, tokens, lm.init_caches(cfg, B, P, dev))
@@ -821,12 +863,23 @@ def serve_requests(engine, label: str, shape, dev, smi: str) -> dict:
         f"{model_flops / BF16_TENSOR_FLOPS * 1e3:.2f} ms) -> {pre_bound / pre_ms[-1]:.1%} of "
         f"the bound; device busy "
         f"{busy_text(pre_busy_ms, prefill[-1][1], prefill[-1][2], pre_events, pre_top)} ({smi})")
-    say(f"serve: set {label} decode: {dec_ms:.4f} ms/step by CUDA events over {steps} steps, "
-        f"{dec_host / steps:.4f} ms by the host clock, {dec_enq / steps:.4f} ms to enqueue; "
+    g_ms = g_ev / steps
+    capture_s = eng.graphs[(B, None)].capture_s
+    say(f"serve: set {label} decode, eager (the step functions): {dec_ms:.4f} ms/step by CUDA "
+        f"events over {steps} steps, {dec_host / steps:.4f} ms by the host clock, "
+        f"{dec_enq / steps:.4f} ms to enqueue, {launches:.0f} host launches a step; "
         f"{B / (dec_ms * 1e-3):.1f} tok/s; bound {dec_bound:.4f} ms ({weights / 1e9:.2f} GB "
         f"of weights + {kv / 1e9:.3f} GB of k/v a step at 3.35 TB/s) -> {dec_bound / dec_ms:.1%}"
         f" of the bound; device busy "
         f"{busy_text(busy_ms, dec_host / steps, dec_enq / steps, n_events, top)} ({smi})")
+    say(f"serve: set {label} decode, graphed (the engine's captured step, captured in "
+        f"{capture_s:.3f} s): {g_ms:.4f} ms/step by CUDA events over {steps} steps, "
+        f"{g_host / steps:.4f} ms by the host clock, {g_enq / steps * 1e3:.1f} us to enqueue, "
+        f"{g_launches:.0f} host launches a step (replay, token and position copies); "
+        f"{B / (g_ms * 1e-3):.1f} tok/s -> {dec_bound / g_ms:.1%} of the bound, "
+        f"{dec_ms / g_ms:.2f}x the eager step; greedy tokens equal to eager, logits within "
+        f"{vs_eager:.4g} x max|logit| of eager (bound {SERVE_PARITY_TOL}); device busy "
+        f"{busy_text(g_busy_ms, g_host / steps, g_enq / steps, g_events, g_top)} ({smi})")
     say(f"serve: set {label} decode parity (prefill {P - 1} + one decode step against prefill "
         f"{P}): {parity:.4g} x max|logit| (bound {SERVE_PARITY_TOL}), argmax equal in "
         f"{agree:.0%} of rows; peak memory {peak / 2**30:.2f} GiB")
@@ -834,15 +887,20 @@ def serve_requests(engine, label: str, shape, dev, smi: str) -> dict:
                          flops=2.0 * cfg.param_count() * B, hbm_bytes=weights + kv))
     say(f"fig8: {v.workload}: reuse {v.reuse:.1f} FLOP/B, {v.quadrant}, modeled PIM "
         f"{v.pim_time_s * 1e3:.4f} ms vs modeled H100 {v.gpu_time_s * 1e3:.4f} ms -> PIM "
-        f"{'wins' if v.pim_wins else 'loses'}; measured H100 decode step {dec_ms:.4f} ms")
+        f"{'wins' if v.pim_wins else 'loses'}; measured H100 decode step {g_ms:.4f} ms graphed "
+        f"({dec_ms:.4f} ms eager)")
     return {"prefill_ms": pre_ms, "prefill_host_ms": [r[1] for r in prefill],
             "prefill_enqueue_ms": [r[2] for r in prefill], "prefill_busy_ms": pre_busy_ms,
             "prefill_bound_ms": pre_bound, "decode_ms": dec_ms,
             "decode_host_ms": dec_host / steps, "decode_enqueue_ms": dec_enq / steps,
             "decode_bound_ms": dec_bound, "decode_busy_ms": busy_ms,
-            "decode_device_events": n_events,
-            "tok_per_s": B / (dec_ms * 1e-3), "generate_s": generate_s, "parity": parity,
-            "peak_gib": peak / 2**30}
+            "decode_device_events": n_events, "decode_host_launches": launches,
+            "graphed_decode_ms": g_ms, "graphed_decode_host_ms": g_host / steps,
+            "graphed_decode_enqueue_us": g_enq / steps * 1e3, "graphed_decode_busy_ms": g_busy_ms,
+            "graphed_decode_host_launches": g_launches, "graphed_vs_eager": vs_eager,
+            "capture_s": capture_s,
+            "tok_per_s": B / (dec_ms * 1e-3), "graphed_tok_per_s": B / (g_ms * 1e-3),
+            "generate_s": generate_s, "parity": parity, "peak_gib": peak / 2**30}
 
 
 def serve_phase(dev: torch.device, smi: str) -> None:
@@ -1026,15 +1084,19 @@ def train_bound(cfg, T: int) -> dict:
 def train_timed(dev: torch.device, smi: str) -> dict:
     """stablelm-3b at full width and depth (float32 parameters, bf16
     compute, ``remat="full"``, AdamW as ``choose_optimizer`` gives it, grad
-    clip 1.0) on one ``TRAIN_SEQ``-token sequence a step: ``TRAIN_WARMUP``
-    then ``TRAIN_TIMED`` steps by CUDA events, the host clock and the
-    enqueue time, the device-busy time of one more, peak memory."""
+    clip 1.0) on one ``TRAIN_SEQ``-token sequence a step, ``TRAIN_STEPS``
+    steps from seed ``SEED`` twice on the same batches: compiled (``build_run``'s
+    step: the first eager, then replays of the captured step) and eager
+    (``steps.make_train_step``), each after its first step by CUDA events,
+    the host clock and the enqueue time, the compiled one's device-busy time
+    and host launches on one more replay, the capture time and peak memory
+    of each; the losses of the two agree step for step."""
     cfg = get_config(TRAIN_ARCH)
     n = cfg.param_count()
     reckoned = {"params, grads, m, v (16 B a parameter)": 16.0 * n,
                 "the clipped copy or the updates (4 B a parameter)": 4.0 * n,
-                "one recomputed layer's blocked float32 attention (3 [1,H,512,512] float32 "
-                "a block pair)": 3.0 * 4 * cfg.n_heads * 512 * 512 * (TRAIN_SEQ // 512) ** 2,
+                "one recomputed layer's blocked attention (3 [1,H,512,512] float32 a block "
+                "pair)": 3.0 * 4 * cfg.n_heads * 512 * 512 * (TRAIN_SEQ // 512) ** 2,
                 "logits (bf16, float32, log-softmax, its gradient)": (2 + 4 * 3) * TRAIN_SEQ
                 * cfg.vocab}
     say(f"train: {cfg.name} at full width and depth ({cfg.n_layers} layers, {n} parameters, "
@@ -1042,57 +1104,86 @@ def train_timed(dev: torch.device, smi: str) -> dict:
         f"memory reckoned before the run: " + "; ".join(
             f"{k} {v / 1e9:.2f} GB" for k, v in reckoned.items())
         + f"; peak at most {sum(reckoned.values()) / 1e9:.2f} GB of "
-        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
-    run = lm_train.build_run(cfg, "adamw", seed=SEED, device=dev)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB, in the eager first "
+        f"step and again in the captured step (the graph's pool takes the step's transients "
+        f"once the first step's cached blocks are freed; both at once would pass the card)")
     stream = SyntheticStream(DataConfig(cfg.vocab, TRAIN_SEQ, 1, seed=SEED))
     batches = [{k: v.to(dev) for k, v in stream.next_batch(i).items()}
-               for i in range(TRAIN_WARMUP + TRAIN_TIMED + 1)]
-    losses, times = [], []
-    for i, batch in enumerate(batches[:-1]):
-        ev, host, enq, (_, run.opt_state, metrics) = timed(
-            lambda: run.step_fn(run.params, run.opt_state, batch))  # noqa: B023
-        losses.append(float(metrics["loss"]))
-        require(np.isfinite(losses[-1]), f"train {cfg.name}: step {i} loss {losses[-1]}")
-        if i >= TRAIN_WARMUP:
+               for i in range(TRAIN_STEPS + 1)]
+    runs = {}
+    for mode in ("graphed", "eager"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        run = lm_train.build_run(cfg, "adamw", seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        step_fn = run.step_fn
+        if mode == "eager":
+            step_fn = lm_steps.make_train_step(cfg, lm_steps.choose_optimizer(cfg, "adamw")[1])
+        require((mode == "graphed") == isinstance(step_fn, GraphedTrainStep),
+                f"train {cfg.name}: build_run's step on the card is {step_fn!r}")
+        losses, times = [], []
+        for i, batch in enumerate(batches[:-1]):
+            ev, host, enq, (_, run.opt_state, metrics) = timed(
+                lambda: step_fn(run.params, run.opt_state, batch))  # noqa: B023
+            losses.append(float(metrics["loss"]))
+            require(np.isfinite(losses[-1]), f"train {cfg.name} {mode}: step {i} loss "
+                    f"{losses[-1]}")
             times.append((ev, host, enq))
-    peak = torch.cuda.max_memory_allocated()
-    t0 = time.perf_counter()
-    busy_ms, top, events = device_busy(
-        lambda: run.step_fn(run.params, run.opt_state, batches[-1]), 1)
-    profile_s = time.perf_counter() - t0
-    require(all(bool(torch.isfinite(p).all()) for p in run.params.parameters()),
-            f"train {cfg.name}: non-finite parameters after {len(batches)} steps")
+        peak = torch.cuda.max_memory_allocated()
+        busy = (0.0, [], 0.0, 0.0)
+        profile_s = 0.0
+        if mode == "graphed":
+            t0 = time.perf_counter()
+            busy = device_busy(lambda: step_fn(run.params, run.opt_state, batches[-1]), 1)
+            profile_s = time.perf_counter() - t0
+        require(all(bool(torch.isfinite(p).all()) for p in run.params.parameters()),
+                f"train {cfg.name} {mode}: non-finite parameters")
+        runs[mode] = {"losses": losses, "times": times, "peak": peak, "held": held,
+                      "build_s": build_s, "busy": busy, "profile_s": profile_s,
+                      "capture_s": getattr(step_fn, "capture_s", None)}
+        del run, step_fn
+    g, e = runs["graphed"], runs["eager"]
     ln_v = float(np.log(cfg.vocab))
-    require(abs(losses[0] - ln_v) <= 0.25 * ln_v,
-            f"train {cfg.name}: step-0 loss {losses[0]} is not near ln V = {ln_v:.3f}")
+    require(abs(g["losses"][0] - ln_v) <= 0.25 * ln_v,
+            f"train {cfg.name}: step-0 loss {g['losses'][0]} is not near ln V = {ln_v:.3f}")
+    vs_eager = max(abs(a - b) / abs(b) for a, b in zip(g["losses"], e["losses"]))
+    require(vs_eager <= TRAIN_BF16_LOSS_RTOL, f"train {cfg.name}: graphed losses {g['losses']} "
+            f"against eager {e['losses']}")
     bound = train_bound(cfg, TRAIN_SEQ)
-    ms = [t[0] for t in times]
-    say(f"train: {cfg.name} built on the card from seed {SEED} in {build_s:.1f} s; losses "
-        f"{', '.join(f'{x:.4f}' for x in losses)} (step 0 against ln V = {ln_v:.4f})")
-    say(f"train: {cfg.name} step (1x{TRAIN_SEQ} tokens): {', '.join(f'{m:.2f}' for m in ms)} ms "
-        f"by CUDA events ({TRAIN_TIMED} steps after {TRAIN_WARMUP} warm-up), host clock "
-        f"{', '.join(f'{t[1]:.2f}' for t in times)} ms, enqueue "
-        f"{', '.join(f'{t[2]:.2f}' for t in times)} ms; bound {bound['bound']:.2f} ms "
-        f"(6NT {bound['6NT']:.2f} + attention 6LT²d {bound['attention']:.2f} at 989 TFLOP/s, "
-        f"AdamW {ADAMW_BYTES} B/param {bound['adamw']:.2f} + clip {CLIP_BYTES} B/param "
-        f"{bound['clip']:.2f} at 3.35 TB/s; remat's recomputed forward would add "
-        f"{bound['remat']:.2f}) -> {bound['bound'] / min(ms):.1%} of the bound; "
-        f"{TRAIN_SEQ / (min(ms) * 1e-3):.0f} tokens/s; device busy "
-        f"{busy_text(busy_ms, times[-1][1], times[-1][2], events, top)} (profiled in "
-        f"{profile_s:.1f} s); peak memory "
-        f"{peak / 1e9:.2f} GB ({peak / 2**30:.2f} GiB, {held / 2**30:.2f} GiB of it held by "
-        f"earlier phases) ({smi})")
-    del run, batches
+    busy_ms, top, events, launches = g["busy"]
+    for mode, r in runs.items():
+        ms = [t[0] for t in r["times"][1:]]
+        r["ms"] = ms
+        say(f"train: {cfg.name} {mode} (built from seed {SEED} in {r['build_s']:.1f} s): losses "
+            f"{', '.join(f'{x:.6f}' for x in r['losses'])}; first step (eager"
+            + (f", then the capture in {r['capture_s']:.2f} s" if r["capture_s"] else "")
+            + f") {r['times'][0][1]:.2f} ms by the host clock; then "
+            f"{', '.join(f'{m:.2f}' for m in ms)} ms a step by CUDA events (1x{TRAIN_SEQ} "
+            f"tokens), host clock {', '.join(f'{t[1]:.2f}' for t in r['times'][1:])} ms, "
+            f"enqueue {', '.join(f'{t[2]:.2f}' for t in r['times'][1:])} ms; "
+            f"{bound['bound'] / min(ms):.1%} of the bound, {TRAIN_SEQ / (min(ms) * 1e-3):.0f} "
+            f"tokens/s; peak memory {r['peak'] / 1e9:.2f} GB ({r['peak'] / 2**30:.2f} GiB, "
+            f"{r['held'] / 2**30:.2f} GiB of it held by earlier phases) of 80 GB ({smi})")
+    say(f"train: {cfg.name} step bound {bound['bound']:.2f} ms (6NT {bound['6NT']:.2f} + "
+        f"attention 6LT²d {bound['attention']:.2f} at 989 TFLOP/s, AdamW {ADAMW_BYTES} B/param "
+        f"{bound['adamw']:.2f} + clip {CLIP_BYTES} B/param {bound['clip']:.2f} at 3.35 TB/s; "
+        f"remat's recomputed forward would add {bound['remat']:.2f}); graphed "
+        f"{min(e['ms']) / min(g['ms']):.2f}x the eager step, losses within {vs_eager:.3g} "
+        f"relative of eager (bound {TRAIN_BF16_LOSS_RTOL}); graphed device busy "
+        f"{busy_text(busy_ms, g['times'][-1][1], g['times'][-1][2], events, top)}, "
+        f"{launches:.0f} host launches (profiled in {g['profile_s']:.1f} s)")
     torch.cuda.empty_cache()
-    return {"step_ms": ms, "host_ms": [t[1] for t in times], "enqueue_ms": [t[2] for t in times],
-            "busy_ms": busy_ms, "device_events": events, "bound_ms": bound, "losses": losses,
-            "peak_gb": peak / 1e9}
+    return {"step_ms": g["ms"], "host_ms": [t[1] for t in g["times"][1:]],
+            "enqueue_ms": [t[2] for t in g["times"][1:]], "capture_s": g["capture_s"],
+            "eager_step_ms": e["ms"], "eager_host_ms": [t[1] for t in e["times"][1:]],
+            "eager_enqueue_ms": [t[2] for t in e["times"][1:]],
+            "busy_ms": busy_ms, "device_events": events, "host_launches": launches,
+            "bound_ms": bound, "losses": g["losses"], "eager_losses": e["losses"],
+            "graphed_vs_eager": vs_eager, "peak_gb": g["peak"] / 1e9,
+            "eager_peak_gb": e["peak"] / 1e9}
 
 
 def train_restart(dev: torch.device) -> None:

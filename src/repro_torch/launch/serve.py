@@ -1,11 +1,14 @@
 """Serving engine: batched prefill + decode with temperature sampling.
 
-The same two steps the reference's serving engine jits, driven eagerly on
-one CUDA card (``device=None``) or, when asked, on the CPU.  Given a
+The same two steps the reference's serving engine jits, on one CUDA card
+(``device=None``) or, when asked, on the CPU.  On the card the decode step
+is compiled as the reference's is: captured once per batch size as a CUDA
+graph (``launch.graphs.GraphedDecode``) on caches the engine owns, and
+replayed once a token; prefill and sampling run eagerly.  Given a
 ``DeviceMesh`` (``launch.mesh.make_host_mesh``), the parameters, caches and
 prompts are DTensors placed by ``parallel.sharding``'s ``param_specs``,
 ``cache_specs`` and ``batch_specs``, and every rank of the mesh runs the
-same steps on its shards.
+same steps, eagerly, on its shards; so does the CPU.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
       --batch 4 --prompt-len 512 --gen 32
@@ -25,6 +28,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.graphs import GraphedDecode
 from repro_torch.launch.mesh import check_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.spmd import full, on_mesh
@@ -45,10 +49,17 @@ class ServeEngine:
     mesh: object = None
     prefill_fn: object = dataclasses.field(init=False, repr=False)
     decode_fn: object = dataclasses.field(init=False, repr=False)
+    graphs: dict = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
         self.prefill_fn = steps_mod.make_prefill_step(self.cfg)
         self.decode_fn = steps_mod.make_decode_step(self.cfg)
+        self.graphs = {}  # (batch, cross_embeds' shape and dtype) → GraphedDecode
+
+    @property
+    def compiled(self) -> bool:
+        """Whether decode replays a captured step: on the card, with no mesh."""
+        return self.device.type == "cuda" and self.mesh is None
 
     @classmethod
     def build(cls, cfg: ModelConfig, max_seq: int, seed: int = 0, device=None, mesh=None):
@@ -74,30 +85,52 @@ class ServeEngine:
         ``torch.Generator`` seeded with ``seed`` on the device samples (its
         stream is not ``jax.random``'s).  With ``return_logits`` it returns
         the tokens and the ``gen_len`` [B, V] logits each token was drawn
-        from (prefill's, then each decode step's), on the device."""
+        from (prefill's, then each decode step's), on the device, each its
+        own copy.  On the card, decode replays the step captured for this
+        batch size, on the caches it owns: they are reset and prefilled
+        here."""
         B, P = prompts.shape
         dev = self.device
-        caches = tfm.init_caches(self.cfg, B, self.max_seq, dev)
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64).to(dev)
         cross = None if cross_embeds is None else torch.as_tensor(cross_embeds).to(dev)
-        if self.mesh is not None:
-            caches = sharding.place_tree(
-                caches, sharding.cache_specs(caches, self.cfg, mesh=self.mesh), self.mesh)
+        if self.compiled:
+            graphed = self._graphed(B, cross)
+            caches = tfm.reset_caches(graphed.caches)
             if cross is not None:
-                cross = self._batch(cross)
+                cross = graphed.cross.copy_(cross)
+            decode = graphed
+        else:
+            caches = tfm.init_caches(self.cfg, B, self.max_seq, dev)
+            if self.mesh is not None:
+                caches = sharding.place_tree(
+                    caches, sharding.cache_specs(caches, self.cfg, mesh=self.mesh), self.mesh)
+                if cross is not None:
+                    cross = self._batch(cross)
+            decode = lambda tok, pos: self.decode_fn(  # noqa: E731
+                self.params, self._batch(tok), pos, caches, cross)[0]
         generator = torch.Generator(device=dev).manual_seed(seed)
         out, seen = [tokens], []
         with on_mesh(self.mesh):
-            logits, caches = self.prefill_fn(self.params, self._batch(tokens), caches, cross)
+            logits, _ = self.prefill_fn(self.params, self._batch(tokens), caches, cross)
             for i in range(gen_len):
                 if i:
-                    logits, caches = self.decode_fn(self.params, self._batch(out[-1]),
-                                                    P + i - 1, caches, cross)
+                    logits = decode(out[-1], P + i - 1)
                 logits = full(logits)
-                seen.append(logits)
+                if return_logits:  # a replay overwrites its logits
+                    seen.append(logits.clone())
                 out.append(_sample(logits, generator, temperature))
         out = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
         return (out, seen) if return_logits else out
+
+    def _graphed(self, batch: int, cross) -> GraphedDecode:
+        """The decode step captured for ``batch`` (and the VLM's
+        ``cross_embeds`` shape), captured on first use."""
+        key = (batch, None if cross is None else (tuple(cross.shape), cross.dtype))
+        if key not in self.graphs:
+            self.graphs[key] = GraphedDecode(
+                self.decode_fn, self.params, self.cfg, batch, self.max_seq, self.device,
+                *(() if cross is None else (cross.shape, cross.dtype)))
+        return self.graphs[key]
 
     def _batch(self, t: torch.Tensor) -> torch.Tensor:
         """An input as the steps take it: placed by ``batch_specs`` on a

@@ -1,7 +1,11 @@
 """Training driver: data → step → metrics, with checkpoint/restart fault
 tolerance and straggler monitoring, on the CUDA card (the CPU when asked),
 and, given a ``DeviceMesh``, sharded over its ranks: parameters, optimizer
-state and batches are then DTensors placed by ``parallel.sharding``.
+state and batches are then DTensors placed by ``parallel.sharding``.  On
+the card with no mesh the step is compiled, as the reference jits it: the
+first step runs eagerly, then the whole step is captured as a CUDA graph
+and replayed (``launch.graphs.GraphedTrainStep``).  On the CPU and on a
+mesh it runs eagerly.
 Usage:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b --smoke \
@@ -22,6 +26,7 @@ from repro_torch.checkpoint import store
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data.pipeline import DataConfig, SyntheticStream
 from repro_torch.launch import steps as steps_mod
+from repro_torch.launch.graphs import GraphedTrainStep
 from repro_torch.launch.mesh import check_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.spmd import full, on_mesh
@@ -55,9 +60,12 @@ def build_run(cfg, optimizer_name="adamw", seed=0, device=None, mesh=None,
     (``None`` = the CUDA card; ``RuntimeError`` without one unless
     ``device="cpu"``).  With a ``mesh`` (on ``device``'s type) every rank
     draws the same model; the parameters and the optimizer state (its step
-    count stays a CPU scalar) keep their shards by ``param_specs`` (``fsdp``
-    also splits the non-TP dim over ``data``), the step places each batch
-    by ``batch_specs``, and its metrics are whole on every rank."""
+    count stays a whole scalar on the device) keep their shards by
+    ``param_specs`` (``fsdp`` also splits the non-TP dim over ``data``), the
+    step places each batch by ``batch_specs``, and its metrics are whole on
+    every rank.  On the card with no mesh ``step_fn`` is compiled: its
+    first call runs eagerly, later calls replay that step captured as a
+    CUDA graph; a capture that fails raises."""
     device = resolve_device(device)
     _, optimizer = steps_mod.choose_optimizer(cfg, optimizer_name)
     params = tfm.init_params(cfg, seed, device)
@@ -71,6 +79,8 @@ def build_run(cfg, optimizer_name="adamw", seed=0, device=None, mesh=None,
         opt_state = {k: v if k == "step" else sharding.place_tree(v, specs[k], mesh)
                      for k, v in opt_state.items()}
         step_fn = _sharded_step(step_fn, mesh)
+    elif device.type == "cuda":
+        step_fn = GraphedTrainStep(step_fn)
     return TrainRun(cfg=cfg, step_fn=step_fn, params=params, opt_state=opt_state, step=0,
                     mesh=mesh)
 
@@ -94,10 +104,21 @@ def _state(run: TrainRun) -> dict:
 
 
 def _restore(run: TrainRun, ckpt_dir: str, step: int) -> None:
+    """The checkpoint of ``step`` copied into the run's own parameter and
+    optimizer-state tensors (a captured step goes on updating those)."""
     state = store.restore(ckpt_dir, step, _state(run))
     run.params.load_state_dict(state["params"])
-    run.opt_state = state["opt_state"]
+    _copy_into(run.opt_state, state["opt_state"])
     run.step = int(state["step"])
+
+
+@torch.no_grad()
+def _copy_into(dst, src) -> None:
+    if isinstance(dst, dict):
+        for k, v in dst.items():
+            _copy_into(v, src[k])
+    else:
+        dst.copy_(src)
 
 
 def train_loop(

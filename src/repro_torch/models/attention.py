@@ -5,9 +5,12 @@ attention, written as plain PyTorch loops over ``bq`` query blocks and
 ``bk`` key blocks with the same padding and position sentinel, so
 activation memory is O(block²) rather than O(T·S).  Decode uses a single
 cache-attention step against a ring cache.  Scores and the weighted sum
-accumulate in float32 (the reference's ``preferred_element_type``): bf16
-inputs are widened exactly before each product, and the probabilities are
-rounded to the value dtype first, as the reference rounds them.
+accumulate in float32 (the reference's ``preferred_element_type``): on the
+card bf16 operands go to the tensor cores as they are, with float32 output
+(``torch.bmm(..., out_dtype=torch.float32)``); elsewhere, and for float32
+operands, they are widened exactly before each product (TF32 stays off).
+The probabilities are rounded to the value dtype first, as the reference
+rounds them.
 
 Caches are dicts of tensors (``k``, ``v``, ``pos``; with ``opt_kv_quant``
 also ``k_scale``, ``v_scale``).  Prefill and decode write into the cache
@@ -73,6 +76,51 @@ def _proj(p: Attention, x, cfg: ModelConfig, *, cross_from=None):
             split_heads(v, K, hd))
 
 
+# ------------------------------------------------------ attention products
+
+def _tensor_cores(*ts: torch.Tensor) -> bool:
+    """The attention products take their bf16 operands as they are: on the
+    card, where the tensor cores sum bf16 products in float32."""
+    return all(t.is_cuda and t.dtype == torch.bfloat16 for t in ts)
+
+
+class _Bf16Product(torch.autograd.Function):
+    """[n, m, k] @ [n, k, p] of bf16 operands, summed and returned in
+    float32: the reference's einsum with ``preferred_element_type=float32``.
+    Each product of two bf16 values is exact in float32, so only the order
+    of the float32 sums differs from the widened product.  The backward's
+    products take a float32 gradient, so they run widened, and each
+    operand's gradient is rounded to bf16 as the reference's transpose
+    rounds it."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.bmm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.bmm(g, b.float().transpose(1, 2)).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.bmm(a.float().transpose(1, 2), g).to(b.dtype)
+        return ga, gb
+
+
+def _block_product(a: torch.Tensor, b: torch.Tensor, tc: bool) -> torch.Tensor:
+    """a [B,K,G,m,k] @ b [B,K,k,n] (the same b for the G query heads of a
+    group) → float32 [B,K,G,m,n]: on the tensor cores as [B·K, G·m, k] @
+    [B·K, k, n] when ``tc``, else widened."""
+    if not tc:
+        return a.float() @ b.float()[:, :, None]
+    B, K, G, m, k = a.shape
+    n = b.shape[-1]
+    return _Bf16Product.apply(a.reshape(B * K, G * m, k), b.reshape(B * K, k, n)).reshape(
+        B, K, G, m, n)
+
+
 # --------------------------------------------------------- flash attention
 
 def flash_attention(
@@ -118,10 +166,14 @@ def flash_attention(
     Tp, Sp = T + padT, S + padS
     nq, nk = Tp // bq, Sp // bk
 
-    # [nq, B, K, G, bq, D] / [nk, B, K, bk, D], widened to float32
-    qb = q.float().reshape(B, nq, bq, K, G, D).permute(1, 0, 3, 4, 2, 5)
-    kb = k.float().reshape(B, nk, bk, K, D).permute(1, 0, 3, 2, 4)
-    vb = v.float().reshape(B, nk, bk, K, D).permute(1, 0, 3, 2, 4)
+    # [nq, B, K, G, bq, D] / [nk, B, K, bk, D]: bf16 blocks laid out for the
+    # card's bf16 products, anything else widened to float32
+    tc = _tensor_cores(q, k, v)
+    lay = (lambda t: t.contiguous()) if tc else (lambda t: t)  # noqa: E731
+    wide = (lambda t: t) if tc else (lambda t: t.float())  # noqa: E731
+    qb = lay(wide(q).reshape(B, nq, bq, K, G, D).permute(1, 0, 3, 4, 2, 5))
+    kb = lay(wide(k).reshape(B, nk, bk, K, D).permute(1, 0, 3, 2, 4))
+    vb = lay(wide(v).reshape(B, nk, bk, K, D).permute(1, 0, 3, 2, 4))
     qpos_b = q_positions.reshape(nq, bq)
     kpos_b = kv_positions.reshape(nk, bk)
 
@@ -133,7 +185,7 @@ def flash_attention(
         l = torch.zeros((B, K, G, bq), dtype=torch.float32, device=dev)
         for j in trips(nk, q):
             ki, vi, kpos = kb[j], vb[j], kpos_b[j]  # [B,K,bk,D], [bk]
-            s = (qi @ ki[:, :, None].transpose(-1, -2)) * scale  # [B,K,G,bq,bk]
+            s = _block_product(qi, ki.transpose(-1, -2), tc) * scale  # [B,K,G,bq,bk]
             if attn_softcap:
                 s = attn_softcap * torch.tanh(s / attn_softcap)
             valid = kpos[None, :] < POS_SENTINEL // 2
@@ -146,7 +198,7 @@ def flash_attention(
             alpha = torch.exp(m - m_new)
             pmat = torch.exp(s - m_new[..., None])
             l = l * alpha + pmat.sum(dim=-1)
-            pv = pmat.to(v_dtype).float() @ vi[:, :, None]
+            pv = _block_product(pmat.to(v_dtype), vi, tc)
             o = o * alpha[..., None] + pv
             m = m_new
         o = o / torch.clamp(l, min=1e-20)[..., None]
@@ -174,8 +226,15 @@ def decode_attention(
     K = k_cache.shape[2]
     G = H // K
     scale = D ** -0.5
-    qh = q.reshape(B, K, G, D).float()
-    s = (qh @ k_cache.float().permute(0, 2, 3, 1)) * scale  # [B,K,G,S]
+    S = k_cache.shape[1]
+    tc = _tensor_cores(q, k_cache, v_cache)
+    if tc:  # [B·K, G, D] @ [B·K, D, S] on the tensor cores
+        s = _Bf16Product.apply(q.reshape(B * K, G, D),
+                               k_cache.permute(0, 2, 3, 1).reshape(B * K, D, S))
+        s = s.reshape(B, K, G, S) * scale
+    else:
+        qh = q.reshape(B, K, G, D).float()
+        s = (qh @ k_cache.float().permute(0, 2, 3, 1)) * scale  # [B,K,G,S]
     if attn_softcap:
         s = attn_softcap * torch.tanh(s / attn_softcap)
     valid = (kv_positions >= 0) & (kv_positions <= position)
@@ -183,7 +242,11 @@ def decode_attention(
         valid = valid & (kv_positions > position - window)
     s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = p.to(v_cache.dtype).float() @ v_cache.float().permute(0, 2, 1, 3)  # [B,K,G,D]
+    if tc:
+        o = _Bf16Product.apply(p.to(v_cache.dtype).reshape(B * K, G, S),
+                               v_cache.permute(0, 2, 1, 3).reshape(B * K, S, D))
+    else:
+        o = p.to(v_cache.dtype).float() @ v_cache.float().permute(0, 2, 1, 3)  # [B,K,G,D]
     return o.reshape(B, 1, H, D).to(q.dtype)
 
 
@@ -198,14 +261,15 @@ def attention_block(
     *,
     cross_embeds: torch.Tensor | None = None,
     cache: dict | None = None,
-    decode_pos: int | None = None,
+    decode_pos: torch.Tensor | None = None,
 ):
     """Returns (out, cache_entry_or_None).
 
     Train/prefill (``decode_pos is None``): flash path; given a ``cache``
     (a self-attention layer's ring from :func:`init_cache`) the prompt's
     k/v are written into it.  Decode: ``x`` is [B, 1, d], ``cache`` holds
-    {k, v, pos} and ``decode_pos`` is the new token's position.  A cross
+    {k, v, pos} and ``decode_pos`` is the new token's position, a 0-d int32
+    tensor on the cache's device.  A cross
     layer keeps no cache: its k/v come from ``cross_embeds`` every step.
     """
     dt = cdtype(cfg)
@@ -213,29 +277,27 @@ def attention_block(
     window = cfg.window if kind == "local" else 0
 
     if cache is not None and decode_pos is not None and kind != "cross":
-        # ---- one-token decode against the ring cache
-        decode_pos = int(decode_pos)
+        # ---- one-token decode against the ring cache; the position is a
+        # 0-d int32 tensor, and nothing here reads it back to the host
         q, k_new, v_new, ring, expand, wrap = local_heads(*_proj(p, x, cfg), cache)
-        pos = torch.full((q.shape[0], 1), decode_pos, dtype=torch.int32, device=q.device)
+        pos = decode_pos.reshape(1, 1).expand(q.shape[0], 1)
         q = apply_rope(q, pos, cfg.rope_theta)
         k_new = apply_rope(k_new, pos, cfg.rope_theta)
-        slot = decode_pos % ring["k"].shape[1]
+        slot = (decode_pos % ring["k"].shape[1]).reshape(1).long()
         if cfg.opt_kv_quant:
             # int8 KV: symmetric per-(token, head) scales, dequantised in
             # the compute dtype before the attention products
             kq, ksc = _quant_kv(k_new)
             vq, vsc = _quant_kv(v_new)
-            ring["k"][:, slot] = kq[:, 0]
-            ring["v"][:, slot] = vq[:, 0]
-            ring["k_scale"][:, slot] = ksc[:, 0]
-            ring["v_scale"][:, slot] = vsc[:, 0]
+            for name, new in (("k", kq), ("v", vq), ("k_scale", ksc), ("v_scale", vsc)):
+                ring[name].index_copy_(1, slot, new)
             k_att = ring["k"].to(dt) * ring["k_scale"][..., None].to(dt)
             v_att = ring["v"].to(dt) * ring["v_scale"][..., None].to(dt)
         else:
-            ring["k"][:, slot] = k_new[:, 0]
-            ring["v"][:, slot] = v_new[:, 0]
+            ring["k"].index_copy_(1, slot, k_new)
+            ring["v"].index_copy_(1, slot, v_new)
             k_att, v_att = ring["k"], ring["v"]
-        ring["pos"][slot] = decode_pos
+        ring["pos"].index_copy_(0, slot, decode_pos.reshape(1))
         o = decode_attention(q, expand(k_att), expand(v_att), ring["pos"], decode_pos,
                              window=window, attn_softcap=cfg.attn_softcap)
         return merge_heads(wrap(o)) @ p.wo.to(dt), cache

@@ -45,6 +45,15 @@ def zeros(shape, dtype, device) -> nn.Parameter:
     return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device))
 
 
+def write_state(state: dict, conv: torch.Tensor, h: torch.Tensor) -> dict:
+    """A recurrent layer's new ``conv`` window and ``h`` copied into
+    ``state``'s own tensors (a replayed CUDA graph reads next step what this
+    step wrote there); returns ``state``."""
+    state["conv"].copy_(conv)
+    state["h"].copy_(h)
+    return state
+
+
 # ``jax.nn.gelu`` defaults to the tanh approximation, ``F.gelu`` to the
 # exact erf: every GELU of the port is the tanh form
 gelu = functools.partial(F.gelu, approximate="tanh")
@@ -144,9 +153,10 @@ def embed_tokens(p: Embed, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tens
     dt = cdtype(cfg)
     x = F.embedding(tokens.long(), p.tok.to(dt))
     # gemma-style sqrt(d) scaling keeps rms ~1 under tied embeddings; the
-    # factor is rounded to the compute dtype first, as in the reference
+    # factor is rounded to the compute dtype first, as in the reference (a
+    # fill on the device: a copy from the host is refused in a CUDA graph)
     if cfg.tie_embeddings:
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt, device=x.device)
+        x = x * torch.full((), cfg.d_model ** 0.5, dtype=dt, device=x.device)
     return x
 
 

@@ -10,7 +10,6 @@ one batched matmul, and gather back weighted by the router.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
@@ -76,7 +75,8 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig):
     # --- capacity-slot assignment
     e_flat = top_i.reshape(-1)  # [N*k]
     w_flat = top_w.reshape(-1)
-    onehot = F.one_hot(e_flat, E)  # [N*k, E]
+    # [N*k, E]; ``F.one_hot`` would read the largest index back to the host
+    onehot = (e_flat[:, None] == torch.arange(E, device=e_flat.device)).long()
     pos_in_e = (torch.cumsum(onehot, dim=0) - 1).gather(1, e_flat[:, None])[:, 0]
     keep = pos_in_e < C
     slot = e_flat * C + torch.clamp(pos_in_e, max=C - 1)  # [N*k]

@@ -19,7 +19,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 
-from .layers import cdtype, gelu, normal, pdtype, zeros
+from .layers import cdtype, gelu, normal, pdtype, write_state, zeros
 from .spmd import depthwise_conv1d, pad
 
 _C = 8.0  # Griffin's recurrence-gate sharpness constant
@@ -69,7 +69,8 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def rglru_block(p: RGLRU, x: torch.Tensor, cfg: ModelConfig, state: dict | None = None):
     """Returns (y [B,T,d], new_state_or_None).
 
-    state (decode): {"conv": [B, W-1, w], "h": [B, w]}."""
+    state (decode): {"conv": [B, W-1, w], "h": [B, w]}.  Given a ``state``,
+    the new one is written into its tensors, and it is returned."""
     dt_ = cdtype(cfg)
     B, T, _ = x.shape
     w, W = cfg.lru_dim, cfg.conv_width
@@ -84,7 +85,7 @@ def rglru_block(p: RGLRU, x: torch.Tensor, cfg: ModelConfig, state: dict | None 
         a, scale = _gates(p, xc)
         h = a * state["h"] + scale * xc
         out = (h.to(dt_)[:, None] * yb) @ p.w_out.to(dt_)
-        return out, {"conv": window[:, 1:], "h": h}
+        return out, write_state(state, window[:, 1:], h)
 
     # prefill / train: causal depthwise conv then the scan over T
     xp = pad(xb, (0, 0, W - 1, 0)) if state is None else torch.cat([state["conv"], xb], dim=1)
@@ -103,7 +104,7 @@ def rglru_block(p: RGLRU, x: torch.Tensor, cfg: ModelConfig, state: dict | None 
     if state is not None:
         conv_tail = xb[:, -(W - 1):] if T >= W - 1 else torch.cat(
             [state["conv"][:, T:], xb], dim=1)
-        new_state = {"conv": conv_tail, "h": h[:, -1]}
+        new_state = write_state(state, conv_tail, h[:, -1])
     return out, new_state
 
 

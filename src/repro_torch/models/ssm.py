@@ -17,7 +17,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 
-from .layers import cdtype, normal, pdtype, rms_norm, zeros
+from .layers import cdtype, normal, pdtype, rms_norm, write_state, zeros
 from .spmd import depthwise_conv1d, scan_heads, trips
 from .spmd import pad as spmd_pad
 
@@ -66,8 +66,9 @@ def ssm_block(p: SSM, x: torch.Tensor, cfg: ModelConfig, state: dict | None = No
     """Returns (y [B,T,d], new_state_or_None).
 
     state (decode): {"conv": [B, W-1, conv_ch], "h": [B, nh, hp, ds]} — pass
-    T=1 inputs for one-token decode; T>1 runs the chunked prefill/train path
-    (returning the final state when ``state`` is given)."""
+    T=1 inputs for one-token decode; T>1 runs the chunked prefill/train path.
+    Given a ``state``, both write the new one into its tensors and return
+    it."""
     dt_ = cdtype(cfg)
     B, T, _ = x.shape
     di, ds, nh, hp = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_headdim
@@ -95,7 +96,7 @@ def ssm_block(p: SSM, x: torch.Tensor, cfg: ModelConfig, state: dict | None = No
         y = torch.einsum("bs,bhps->bhp", Cf, h_new) + p.D[None, :, None] * xh
         y = y.reshape(B, 1, di).to(dt_)
         y = rms_norm(y * F.silu(z), p.norm_w, cfg.norm_eps)
-        return y @ p.w_out.to(dt_), {"conv": window[:, 1:], "h": h_new}
+        return y @ p.w_out.to(dt_), write_state(state, window[:, 1:], h_new)
 
     # ---- chunked prefill / train
     conv_out = F.silu(_causal_conv(conv_in, p.conv_w.to(dt_), p.conv_b.to(dt_)))
@@ -119,7 +120,7 @@ def ssm_block(p: SSM, x: torch.Tensor, cfg: ModelConfig, state: dict | None = No
     if state is not None:
         conv_tail = conv_in[:, -(W - 1):] if T >= W - 1 else torch.cat(
             [state["conv"][:, T:], conv_in], dim=1)
-        new_state = {"conv": conv_tail, "h": h}
+        new_state = write_state(state, conv_tail, h)
     return out, new_state
 
 

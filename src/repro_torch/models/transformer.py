@@ -120,6 +120,15 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, device=None) -> list
     return [init_layer_cache(cfg, kind, batch, seq_len, device) for kind in cfg.layer_kinds()]
 
 
+def reset_caches(caches: list) -> list:
+    """``caches`` set back to what :func:`init_caches` gives (ring positions
+    −1, everything else 0), in place; returns them."""
+    for cache in caches:
+        for name, t in cache.items():
+            t.fill_(-1 if name == "pos" else 0)
+    return caches
+
+
 # ------------------------------------------------------------------ layers
 
 def apply_layer(
@@ -172,14 +181,17 @@ def _save_dots(ctx, op, *args, **kwargs):
 
 
 def _remat(cfg: ModelConfig):
-    """``apply_layer`` under ``cfg.remat``'s checkpoint, or None for "none"."""
+    """``apply_layer`` under ``cfg.remat``'s checkpoint, or None for "none".
+    The model draws no random numbers, so the checkpoint keeps no RNG state
+    (reading it is refused while a CUDA graph is captured)."""
     if cfg.remat == "none":
         return None
     if cfg.remat == "full":
-        return functools.partial(checkpoint, apply_layer, use_reentrant=False)
+        return functools.partial(checkpoint, apply_layer, use_reentrant=False,
+                                 preserve_rng_state=False)
     if cfg.remat == "dots":
         return functools.partial(
-            checkpoint, apply_layer, use_reentrant=False,
+            checkpoint, apply_layer, use_reentrant=False, preserve_rng_state=False,
             context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
     raise ValueError(f"remat must be none, full or dots, got {cfg.remat!r}")
 
@@ -261,8 +273,15 @@ def prefill(params: Transformer, tokens, cfg: ModelConfig, caches, *, cross_embe
 @torch.no_grad()
 def decode_step(params: Transformer, tokens, position, cfg: ModelConfig, caches, *,
                 cross_embeds=None):
-    """One-token decode: tokens [B,1], ``position`` an int (or a scalar
-    tensor).  Returns (logits [B,V], new_caches)."""
+    """One-token decode: tokens [B,1], ``position`` a 0-d int32 tensor on
+    the tokens' device, as the reference passes it (an int is taken too).
+    The step reads nothing back to the host, so it can be captured in a
+    CUDA graph that takes the position from its buffer at every replay.
+    Returns (logits [B,V], new_caches): the caches it was given, written in
+    place."""
+    if not isinstance(position, torch.Tensor):  # a fill on the device, not a host copy
+        position = torch.full((), position, dtype=torch.int32, device=tokens.device)
+    position = position.to(device=tokens.device, dtype=torch.int32)
     x, _, new_caches = _trunk(params, tokens, cfg, cross_embeds=cross_embeds, caches=caches,
-                              decode_pos=int(position), start_pos=0)
+                              decode_pos=position, start_pos=0)
     return lm_head(params.embed, x[:, -1], cfg), new_caches

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor, Replicate
 
-from .adamw import Optimizer, step_counter
+from .adamw import Optimizer, _device, count_step, step_counter
 
 
 def adafactor(
@@ -59,11 +59,11 @@ def adafactor(
             return {"v": torch.zeros(shape, **f32)}
 
         return {"s": {key: one(names) for key, names in _groups(params).items()},
-                "step": step_counter()}
+                "step": step_counter(_device(params))}
 
     @torch.no_grad()
     def update(grads: dict, state: dict, params: dict):
-        step = state["step"] + 1
+        step = count_step(state)
         t = step.float()
         beta = 1.0 - t ** (-decay)
         updates = {}
@@ -71,15 +71,15 @@ def adafactor(
             s = state["s"][key]
             g32 = _gather(grads, key, names).float()
             g2 = g32 * g32 + eps
-            if _factored(g32.shape):
-                s["vr"] = beta * s["vr"] + (1 - beta) * g2.mean(dim=-1)
-                s["vc"] = beta * s["vc"] + (1 - beta) * g2.mean(dim=-2)
+            if _factored(g32.shape):  # the moments written in place
+                s["vr"].copy_(beta * s["vr"] + (1 - beta) * g2.mean(dim=-1))
+                s["vc"].copy_(beta * s["vc"] + (1 - beta) * g2.mean(dim=-2))
                 vr, vc = s["vr"], s["vc"]
                 denom = vr[..., None] * vc[..., None, :] / torch.clamp(
                     vr.mean(dim=-1, keepdim=True)[..., None], min=eps)
                 u = g32 * torch.rsqrt(denom + eps)
             else:
-                s["v"] = beta * s["v"] + (1 - beta) * g2
+                s["v"].copy_(beta * s["v"] + (1 - beta) * g2)
                 u = g32 * torch.rsqrt(s["v"] + eps)
             rms_u = torch.sqrt(torch.mean(u * u) + eps)
             u = u / torch.clamp(rms_u / clip_threshold, min=1.0)

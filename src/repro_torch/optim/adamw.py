@@ -2,8 +2,10 @@
 
 The port's optimizers work on flat dicts of tensors keyed by the model's
 ``state_dict`` names: parameters, gradients and every moment alike.  The
-moments are updated in place and returned in the new state, so a step
-holds one copy of them (at 2.8 B parameters a second copy is 22 GB).
+moments and the step count are updated in place and returned in the new
+state, so a step holds one copy of them (at 2.8 B parameters a second copy
+is 22 GB), and a step captured in a CUDA graph updates the state it was
+captured on.
 """
 
 from __future__ import annotations
@@ -20,10 +22,17 @@ class Optimizer:
     update: Callable  # (grads, state, params) -> (updates, state)
 
 
-def step_counter() -> torch.Tensor:
-    """The optimizer's step count: an int32 scalar on the CPU, so reading
-    it never waits for the card."""
-    return torch.zeros((), dtype=torch.int32)
+def step_counter(device=None) -> torch.Tensor:
+    """The optimizer's step count: an int32 scalar on the parameters'
+    device, counted up in place by each update, so a step captured in a
+    CUDA graph reads it (and the learning rate made from it) anew at every
+    replay."""
+    return torch.zeros((), dtype=torch.int32, device=device)
+
+
+def count_step(state: dict) -> torch.Tensor:
+    """``state["step"]`` plus one, written in place; returns it."""
+    return state["step"].add_(1)
 
 
 def adamw(
@@ -40,11 +49,11 @@ def adamw(
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)  # noqa: E731
         return {"m": {k: zeros(p) for k, p in params.items()},
                 "v": {k: zeros(p) for k, p in params.items()},
-                "step": step_counter()}
+                "step": step_counter(_device(params))}
 
     @torch.no_grad()
     def update(grads: dict, state: dict, params: dict):
-        step = state["step"] + 1
+        step = count_step(state)
         t = step.float()
         lr_t = torch.as_tensor(lr_fn(step), dtype=torch.float32)
         bc1 = 1.0 - b1 ** t
@@ -62,6 +71,11 @@ def adamw(
         return updates, {"m": state["m"], "v": state["v"], "step": step}
 
     return Optimizer(init=init, update=update)
+
+
+def _device(params: dict):
+    """The parameters' device (``None``, the default, for no parameters)."""
+    return next(iter(params.values())).device if params else None
 
 
 @torch.no_grad()

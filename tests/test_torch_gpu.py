@@ -287,3 +287,231 @@ def test_train_step_on_card_matches_cpu(cuda, arch):
     for k in ("loss", "grad_norm"):
         assert abs(got_m[k] - want_m[k]) <= 1e-5 * abs(want_m[k]), k
     assert abs(got_after - want_after) <= 1e-4 * abs(want_after)
+
+
+# ------------------------------------------------ the compiled (graphed) step
+#
+# A replayed CUDA graph launches the kernels the eager step launched at
+# capture, so graphed and eager are held to each other exactly: tokens
+# equal, float32 logits, losses and parameters within GRAPH_TOL of their
+# largest (cuBLAS may pick another algorithm under capture, which moves the
+# last bit).  TF32 off throughout.
+
+GRAPH_TOL = 1e-6
+GRAPH_ARCHS = ["llama_3_2_vision_11b", "deepseek_moe_16b", "grok_1_314b", "stablelm_3b",
+               "llama3_2_3b", "gemma2_27b", "qwen2_5_14b", "mamba2_780m", "musicgen_large",
+               "recurrentgemma_9b"]
+
+
+def _f32_smoke(arch: str, **changes):
+    from repro_torch.configs import get_smoke_config
+
+    return dataclasses.replace(get_smoke_config(arch), param_dtype="float32",
+                               compute_dtype="float32", **changes)
+
+
+def _close(got: torch.Tensor, want: torch.Tensor, tol: float = GRAPH_TOL) -> bool:
+    scale = max(float(want.double().abs().max()), 1e-30)
+    return float((got.double() - want.double()).abs().max()) <= tol * scale
+
+
+def _eager_greedy(model, cfg, prompts, cross, steps: int, dev):
+    """Prefill then ``steps`` greedy decode steps through the eager step
+    functions → (logits list, tokens [B, steps + 1])."""
+    from repro_torch.launch import steps as lm_steps
+    from repro_torch.models import transformer as lm
+
+    B, P = prompts.shape
+    caches = lm.init_caches(cfg, B, P + steps, dev)
+    cross = None if cross is None else cross.to(dev)
+    logits, caches = lm_steps.make_prefill_step(cfg)(model, prompts.to(dev), caches, cross)
+    decode = lm_steps.make_decode_step(cfg)
+    seen, toks = [logits.clone()], [logits.argmax(-1, keepdim=True)]
+    for i in range(steps):
+        logits, caches = decode(model, toks[-1], P + i, caches, cross)
+        seen.append(logits.clone())
+        toks.append(logits.argmax(-1, keepdim=True))
+    return seen, torch.cat(toks, dim=1).cpu()
+
+
+@pytest.mark.parametrize("arch,changes", [pytest.param(a, {}, id=a) for a in GRAPH_ARCHS] + [
+    pytest.param("musicgen_large", {"opt_kv_quant": True}, id="musicgen_large-int8_kv")])
+def test_graphed_decode_matches_eager(cuda, arch, changes):
+    """``ServeEngine.generate`` on the card replays the captured decode
+    step; it gives the eager step functions' tokens and logits on the same
+    weights.  12 prompt tokens and 5 steps pass gemma2's 8-slot local
+    window, so its rings wrap."""
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models import transformer as lm
+
+    from benchmarks.torch_fig6_cnn_infer import full_precision
+
+    cfg = _f32_smoke(arch, **changes)
+    model = lm.init_params(cfg, 0, cuda)
+    gen = torch.Generator().manual_seed(5)
+    prompts = torch.randint(0, cfg.vocab, (2, 12), generator=gen)
+    cross = (torch.randn((2, cfg.cross_kv_len, cfg.d_model), generator=gen)
+             if cfg.family == "vlm" else None)
+    with full_precision():
+        want, want_tok = _eager_greedy(model, cfg, prompts, cross, 5, cuda)
+        engine = ServeEngine(cfg, model, 17, cuda)
+        out, got = engine.generate(prompts.numpy(), 6, temperature=0.0, return_logits=True,
+                                   cross_embeds=None if cross is None else cross.numpy())
+    assert engine.compiled and len(engine.graphs) == 1
+    assert np.array_equal(out[:, 12:], want_tok.numpy())
+    assert len(got) == len(want) == 6
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert _close(g, w), (i, float((g - w).abs().max()), float(w.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["gemma2_27b", "mamba2_780m", "recurrentgemma_9b"])
+def test_one_engine_serves_requests_like_fresh_engines(cuda, arch):
+    """One engine serving requests of two batch sizes and prompt lengths,
+    then the first again, gives the tokens of a fresh engine for each: its
+    static caches and buffers carry nothing from one request to the next."""
+    from repro_torch.launch.serve import ServeEngine
+
+    cfg = _f32_smoke(arch)
+    rng = np.random.default_rng(9)
+    requests = [rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32),
+                rng.integers(0, cfg.vocab, (3, 5)).astype(np.int32)]
+    requests.append(requests[0])
+    engine = ServeEngine.build(cfg, 20, seed=1, device=cuda)
+    for prompts in requests:
+        fresh = ServeEngine.build(cfg, 20, seed=1, device=cuda)
+        assert np.array_equal(engine.generate(prompts, 7, temperature=0.0),
+                              fresh.generate(prompts, 7, temperature=0.0))
+    assert sorted(k[0] for k in engine.graphs) == [2, 3]
+
+
+def test_generate_returns_distinct_logits_each_step(cuda):
+    """With ``return_logits`` each step's logits are a copy of their own,
+    not the graph's output buffer the next replay overwrites."""
+    from repro_torch.launch.serve import ServeEngine
+
+    cfg = _f32_smoke("stablelm_3b")
+    engine = ServeEngine.build(cfg, 16, device=cuda)
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab, (2, 8)).astype(np.int32)
+    out, logits = engine.generate(prompts, 6, temperature=0.0, return_logits=True)
+    assert len({lg.data_ptr() for lg in logits}) == 6
+    for i in range(1, 6):
+        assert not torch.equal(logits[i], logits[i - 1])
+        assert np.array_equal(logits[i].argmax(-1).cpu().numpy(), out[:, 8 + i])
+
+
+@pytest.mark.parametrize("remat", ["full", "dots"])
+@pytest.mark.parametrize("optimizer", ["adamw", "adafactor"])
+@pytest.mark.parametrize("arch", ["stablelm_3b", "deepseek_moe_16b", "mamba2_780m"])
+def test_graphed_train_steps_match_eager(cuda, arch, optimizer, remat):
+    """Three steps of ``build_run``'s compiled step (the first eager, then
+    replays of the captured step) against three eager steps from the same
+    weights: losses within 1e-6 relative, every parameter within 1e-6 of
+    its largest."""
+    import copy
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.launch import graphs, steps, train
+
+    from benchmarks.torch_fig6_cnn_infer import full_precision
+
+    cfg = _f32_smoke(arch, remat=remat)
+    run = train.build_run(cfg, optimizer, seed=0, device=cuda)
+    assert isinstance(run.step_fn, graphs.GraphedTrainStep)
+    model = copy.deepcopy(run.params)
+    _, opt = steps.choose_optimizer(cfg, optimizer)
+    state = opt.init(dict(model.named_parameters()))
+    eager = steps.make_train_step(cfg, opt)
+    stream = SyntheticStream(DataConfig(cfg.vocab, 16, 2, seed=4))
+    with full_precision():
+        for i in range(3):
+            batch = {k: v.to(cuda) for k, v in stream.next_batch(i).items()}
+            _, state, want = eager(model, state, batch)
+            _, run.opt_state, got = run.step_fn(run.params, run.opt_state, batch)
+            assert abs(float(got["loss"]) - float(want["loss"])) <= GRAPH_TOL * abs(
+                float(want["loss"])), i
+    assert run.step_fn.graph is not None
+    assert int(run.opt_state["step"]) == 3 and run.opt_state["step"].device.type == "cuda"
+    want = dict(model.named_parameters())
+    for k, p in run.params.named_parameters():
+        assert _close(p, want[k]), k
+
+
+def test_graphed_train_restore_continues_as_uninterrupted(cuda, tmp_path):
+    """``train_loop`` on the compiled step with a fault at step 7 restores
+    step 6 by copying into the tensors the graph holds, and ends where an
+    uninterrupted compiled run ends."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.launch import train
+    from repro_torch.runtime.fault_tolerance import FTConfig, FaultInjector
+
+    from benchmarks.torch_fig6_cnn_infer import full_precision
+
+    cfg = _f32_smoke("llama3_2_3b")
+    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2))
+    runs = []
+    with full_precision():
+        for d, injector in ((tmp_path / "a", FaultInjector({7})), (tmp_path / "b", None)):
+            run = train.build_run(cfg, "adamw", seed=0, device=cuda)
+            ptrs = [p.data_ptr() for p in run.params.parameters()]
+            run, hist = train.train_loop(run, stream, 10, ckpt_dir=str(d), injector=injector,
+                                         ft=FTConfig(checkpoint_every=3, max_restarts=1),
+                                         log_every=1000)
+            assert [p.data_ptr() for p in run.params.parameters()] == ptrs
+            runs.append((run, [h["loss"] for h in hist]))
+    (faulted, losses_f), (clean, losses_c) = runs
+    assert len(losses_f) == 11 and len(losses_c) == 10
+    assert abs(losses_f[-1] - losses_c[-1]) <= GRAPH_TOL * abs(losses_c[-1])
+    want = dict(clean.params.named_parameters())
+    for k, p in faulted.params.named_parameters():
+        assert _close(p, want[k]), k
+
+
+def test_replays_read_nothing_back(cuda):
+    """``torch.cuda.set_sync_debug_mode("error")`` around a decode replay
+    and a train-step replay: neither synchronises with the host."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.launch import graphs, train
+    from repro_torch.launch.serve import ServeEngine
+
+    cfg = _f32_smoke("recurrentgemma_9b")
+    engine = ServeEngine.build(cfg, 16, device=cuda)
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab, (2, 8)).astype(np.int32)
+    engine.generate(prompts, 3, temperature=0.0)
+    decode = engine.graphs[(2, None)]
+    tok = torch.zeros((2, 1), dtype=torch.int64, device=cuda)
+    moe = _f32_smoke("deepseek_moe_16b")
+    run = train.build_run(moe, "adamw", device=cuda)
+    stream = SyntheticStream(DataConfig(moe.vocab, 16, 2))
+    batches = [{k: v.to(cuda) for k, v in stream.next_batch(i).items()} for i in range(2)]
+    run.step_fn(run.params, run.opt_state, batches[0])
+    assert isinstance(run.step_fn, graphs.GraphedTrainStep)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        decode(tok, 9)
+        run.step_fn(run.params, run.opt_state, batches[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_bf16_attention_products_run_on_the_tensor_cores(cuda):
+    """bf16 operands go to ``torch.bmm(..., out_dtype=torch.float32)``: the
+    float32 result equals the widened product's within float32 summation
+    order (each bf16 product is exact in float32); the backward's gradients
+    against the widened autograd's within the same order."""
+    from repro_torch.models import attention
+
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn((6, 40, 64), generator=gen).bfloat16().to(cuda).requires_grad_()
+    b = torch.randn((6, 64, 72), generator=gen).bfloat16().to(cuda).requires_grad_()
+    assert attention._tensor_cores(a, b)
+    got = attention._Bf16Product.apply(a, b)
+    assert got.dtype == torch.float32
+    want = torch.bmm(a.detach().double(), b.detach().double())
+    assert _close(got.detach(), want, 1e-5)
+    g = torch.randn(got.shape, generator=gen).to(cuda)
+    got.backward(g)
+    ga = (g.double() @ b.detach().double().transpose(1, 2)).to(torch.bfloat16)
+    gb = (a.detach().double().transpose(1, 2) @ g.double()).to(torch.bfloat16)
+    assert _close(a.grad, ga, 1e-2) and _close(b.grad, gb, 1e-2)

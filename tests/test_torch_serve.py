@@ -57,7 +57,9 @@ def _assert_caches_close(got: list, want: list, cfg, what: str):
 
 def _prefill_and_decode(cfg, prompt_len: int, max_seq: int):
     """Prefill ``prompt_len`` tokens then ``STEPS`` greedy decode steps on
-    both sides; caches compared after prefill and after the last step."""
+    both sides, the position passed as the reference passes it (a 0-d int32
+    array; on the port's side a tensor); caches compared after prefill and
+    after the last step."""
     tree = ref_params(cfg)
     model = port_model(cfg, tree)
     tokens, cross = inputs(cfg, B, prompt_len)
@@ -76,8 +78,8 @@ def _prefill_and_decode(cfg, prompt_len: int, max_seq: int):
         np.testing.assert_array_equal(tok.numpy(), np.asarray(ref_tok))
         want, ref_caches = ref_T.decode_step(tree, ref_tok, jnp.asarray(prompt_len + i), cfg,
                                              ref_caches, cross_embeds=ref_cross)
-        got, caches = T.decode_step(model, tok, prompt_len + i, cfg, caches,
-                                    cross_embeds=t(cross))
+        got, caches = T.decode_step(model, tok, torch.tensor(prompt_len + i, dtype=torch.int32),
+                                    cfg, caches, cross_embeds=t(cross))
         assert rel_err(got, want) <= TOL, (i, rel_err(got, want))
     _assert_caches_close(
         caches, convert.lm_caches(to_numpy(ref_caches), cfg, B, max_seq, "cpu"), cfg, "decode")
