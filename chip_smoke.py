@@ -1126,7 +1126,7 @@ def train_timed(dev: torch.device, smi: str) -> dict:
                 f"train {cfg.name}: build_run's step on the card is {step_fn!r}")
         losses, times = [], []
         for i, batch in enumerate(batches[:-1]):
-            ev, host, enq, (_, run.opt_state, metrics) = timed(
+            ev, host, enq, (params, run.opt_state, metrics) = timed(
                 lambda: step_fn(run.params, run.opt_state, batch))  # noqa: B023
             losses.append(float(metrics["loss"]))
             require(np.isfinite(losses[-1]), f"train {cfg.name} {mode}: step {i} loss "
@@ -1144,7 +1144,7 @@ def train_timed(dev: torch.device, smi: str) -> dict:
         runs[mode] = {"losses": losses, "times": times, "peak": peak, "held": held,
                       "build_s": build_s, "busy": busy, "profile_s": profile_s,
                       "capture_s": getattr(step_fn, "capture_s", None)}
-        del run, step_fn
+        del run, step_fn, params, metrics  # the next run needs the card's memory
     g, e = runs["graphed"], runs["eager"]
     ln_v = float(np.log(cfg.vocab))
     require(abs(g["losses"][0] - ln_v) <= 0.25 * ln_v,

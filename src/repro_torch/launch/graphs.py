@@ -28,22 +28,6 @@ import torch
 from repro_torch.models import transformer as tfm
 
 
-def capture(fn, *, warmup: int = 1):
-    """``fn()`` run ``warmup`` times on a side stream (lazy initialisation,
-    such as cuBLAS's workspaces, happens outside the capture), then captured
-    → (graph, what the captured call returned)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(warmup):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        out = fn()
-    return graph, out
-
-
 def _leaves(tree) -> list:
     if isinstance(tree, dict):
         return [x for _, v in sorted(tree.items()) for x in _leaves(v)]
@@ -67,9 +51,19 @@ class GraphedDecode:
         self.caches = tfm.init_caches(cfg, batch, max_seq, device)
         self.cross = None if cross_shape is None else torch.zeros(
             cross_shape, dtype=cross_dtype, device=device)
+        step = lambda: decode_fn(  # noqa: E731
+            params, self.tokens, self.position, self.caches, self.cross)[0]
         t0 = time.perf_counter()
-        self.graph, (self.logits, _) = capture(lambda: decode_fn(
-            params, self.tokens, self.position, self.caches, self.cross))
+        # One step on a side stream first: lazy initialisation (cuBLAS's
+        # workspaces among it) happens outside the capture.
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self.logits = step()
         self.capture_s = time.perf_counter() - t0  # the warm-up step and the capture
         tfm.reset_caches(self.caches)
 

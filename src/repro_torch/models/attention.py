@@ -166,14 +166,15 @@ def flash_attention(
     Tp, Sp = T + padT, S + padS
     nq, nk = Tp // bq, Sp // bk
 
-    # [nq, B, K, G, bq, D] / [nk, B, K, bk, D]: bf16 blocks laid out for the
-    # card's bf16 products, anything else widened to float32
     tc = _tensor_cores(q, k, v)
-    lay = (lambda t: t.contiguous()) if tc else (lambda t: t)  # noqa: E731
-    wide = (lambda t: t) if tc else (lambda t: t.float())  # noqa: E731
-    qb = lay(wide(q).reshape(B, nq, bq, K, G, D).permute(1, 0, 3, 4, 2, 5))
-    kb = lay(wide(k).reshape(B, nk, bk, K, D).permute(1, 0, 3, 2, 4))
-    vb = lay(wide(v).reshape(B, nk, bk, K, D).permute(1, 0, 3, 2, 4))
+    if not tc:
+        q, k, v = q.float(), k.float(), v.float()
+    # [nq, B, K, G, bq, D] / [nk, B, K, bk, D]
+    qb = q.reshape(B, nq, bq, K, G, D).permute(1, 0, 3, 4, 2, 5)
+    kb = k.reshape(B, nk, bk, K, D).permute(1, 0, 3, 2, 4)
+    vb = v.reshape(B, nk, bk, K, D).permute(1, 0, 3, 2, 4)
+    if tc:  # each block laid out once for the products' [B·K, rows, D] views
+        qb, kb, vb = qb.contiguous(), kb.contiguous(), vb.contiguous()
     qpos_b = q_positions.reshape(nq, bq)
     kpos_b = kv_positions.reshape(nk, bk)
 

@@ -311,8 +311,8 @@ def _f32_smoke(arch: str, **changes):
 
 
 def _close(got: torch.Tensor, want: torch.Tensor, tol: float = GRAPH_TOL) -> bool:
-    scale = max(float(want.double().abs().max()), 1e-30)
-    return float((got.double() - want.double()).abs().max()) <= tol * scale
+    got, want = got.detach().double(), want.detach().double()
+    return float((got - want).abs().max()) <= tol * max(float(want.abs().max()), 1e-30)
 
 
 def _eager_greedy(model, cfg, prompts, cross, steps: int, dev):
