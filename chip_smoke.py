@@ -38,20 +38,21 @@ every kernel count set to 0 before it (it must launch none of the port's
 kernels): each arch's smoke config in float32, and gemma2-27b at full width
 and depth 2, run prefill and greedy decode on the card and on the CPU with
 the same weights through the serving engine's loop (on the card its
-captured decode step; logits within ``SERVE_TOL`` of the largest, tokens
-equal), and each smoke config at its
+captured prefill and decode steps; logits within ``SERVE_TOL`` of the
+largest, tokens equal), and each smoke config at its
 default dtypes (bf16 compute) runs the forward and prefill plus
 teacher-forced decode on both (each position within ``SERVE_BF16_TOL``);
 then gemma2-27b at full width and depth (``serve_config``: bf16,
 50.7 GiB of weights from seed 0) serves request set A (batch 4, prompt
 512, 32 tokens: greedy twice, equal; then at temperature 0.8) and set B
 (batch 1, a 4352-token prompt past the 4096 window, 8 tokens), each with
-prefill time by CUDA events, the host clock and the enqueue time beside
-its bound, and decode time so measured twice, eager (the step functions)
-and graphed (the engine's captured step), with the host's launches and the
-device-busy time of a step (greedy tokens equal between the two, logits
-within ``SERVE_PARITY_TOL``), peak memory, decode parity (prefill P−1 plus
-a decode step against prefill P) and the Fig 8 verdict;
+prefill and decode time by CUDA events, the host clock and the enqueue
+time beside their bounds, each measured twice, eager (the step functions)
+and graphed (the engine's captured steps, with their capture times), with
+the host's launches and the device-busy time of a step (greedy tokens
+equal between the two, logits within ``SERVE_PARITY_TOL``), the graphs'
+memory pool, peak memory, decode parity (prefill P−1 plus a decode step
+against prefill P) and the Fig 8 verdict;
 then ``examples/torch_serve_decode.py`` on the card.  The LM training
 phase follows, its counts also set to 0 before it and required 0 after:
 each smoke arch in float32, and stablelm-3b at full width and depth 2 on
@@ -73,10 +74,12 @@ from its checkpoint, a fresh run resumes cold, and
 down.  The scale-out phase comes last, its counts also set to 0 before it
 and required 0 after: ``make_host_mesh()`` starts a process group of one
 NCCL rank; every smoke arch served greedily through ``ServeEngine.build(...,
-mesh=mesh)`` gives the meshless engine's tokens, and two float32 AdamW
-steps of stablelm-3b at full width, depth 2, through ``build_run(...,
-mesh=mesh)`` agree with the meshless run (loss within ``TRAIN_LOSS_RTOL``,
-parameters within ``SCALE_PARAM_TOL`` of their largest);
+mesh=mesh)``, compiled (prefill and decode captured on the mesh) and eager,
+gives the meshless engine's tokens, and three float32 AdamW steps of
+stablelm-3b at full width, depth 2, through ``build_run(..., mesh=mesh)``,
+compiled and eager, agree with the meshless run (loss within
+``TRAIN_LOSS_RTOL``, parameters within ``SCALE_PARAM_TOL`` of their
+largest), each with the host's launches a request or a step;
 ``compressed_psum_mean`` runs over every gradient leaf of stablelm-3b at
 full width, timed by CUDA events beside its bytes bound, its largest leaf
 bit-equal to the CPU's; the dry run of ``DRYRUN_CELLS`` on the fake 16x16
@@ -195,11 +198,13 @@ TRAIN_STEPS = 3
 ADAMW_BYTES, CLIP_BYTES = 28, 12
 
 # The scale-out phase.  A mesh of one NCCL rank: the sharded serving engine's
-# greedy tokens equal the meshless engine's; two AdamW steps of stablelm-3b
-# at full width, depth 2, in float32, within TRAIN_LOSS_RTOL (loss, relative)
-# and SCALE_PARAM_TOL x each parameter's largest of the meshless run.
+# greedy tokens, compiled and eager, equal the meshless engine's; three AdamW
+# steps of stablelm-3b at full width, depth 2, in float32 (the compiled run's
+# first eager, then two replays), compiled and eager, within TRAIN_LOSS_RTOL
+# (loss, relative) and SCALE_PARAM_TOL x each parameter's largest of the
+# meshless run.
 SCALE_PARAM_TOL = 1e-4
-SCALE_TRAIN_STEPS = 2
+SCALE_TRAIN_STEPS = 3
 # compressed_psum_mean over every gradient leaf of stablelm-3b at full width:
 # it reads g and the residual and writes the mean and the new residual, 16 B
 # an element, at 3.35 TB/s (the codes and scales are intermediates).
@@ -696,6 +701,12 @@ def bf16_card_matches_cpu(label: str, cfg, model_cpu, model_card, dev, seed: int
     return {path: r[0] for path, r in readings.items()}
 
 
+def graph_pool_bytes() -> int:
+    """Bytes the card's private memory pools (the CUDA graphs') hold."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
 def timed(fn) -> tuple[float, float, float, object]:
     """(CUDA-event ms, host-clock ms to the end of the work, host ms to
     enqueue it, result) of one call of ``fn``."""
@@ -768,15 +779,20 @@ def serve_requests(engine, label: str, shape, dev, smi: str) -> dict:
     t0 = time.perf_counter()
     out = eng.generate(prompts, G, temperature=0.0)
     generate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     again = eng.generate(prompts, G, temperature=0.0)
+    again_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
+    pools = graph_pool_bytes()
     require(out.shape == (B, P + G) and np.array_equal(out, again),
             f"serve set {label}: two greedy runs differ")
     require(np.array_equal(out[:, :P], prompts), f"serve set {label}: prompts not echoed")
     require(0 <= out.min() and out.max() < cfg.vocab, f"serve set {label}: token out of range")
     say(f"serve: set {label} (batch {B}, prompt {P}, gen {G}): two greedy runs token-equal, "
         f"prompts echoed; generate {generate_s:.3f} s by the host clock "
-        f"({B * G / generate_s:.1f} tok/s end to end, the decode step's capture included); "
+        f"({B * G / generate_s:.1f} tok/s end to end, the prefill's and decode step's captures "
+        f"included), {again_s:.3f} s the second time; the prefill and decode graphs' shared "
+        f"pool and any other graph pool on the card {pools / 2**30:.3f} GiB; "
         f"first row {out[0, P:].tolist()}")
     if label == "A":
         sampled = eng.generate(prompts, G, temperature=SERVE_TEMPERATURE, seed=SEED)
@@ -786,6 +802,11 @@ def serve_requests(engine, label: str, shape, dev, smi: str) -> dict:
             f"{sampled[0, P:].tolist()}")
 
     tokens = torch.from_numpy(prompts).long().to(dev)
+    # The steps the engine captured for this shape in the greedy runs above.
+    graphed = eng.graphs[("decode", B, None)]
+    graphed_prefill = eng.graphs[("prefill", B, P, None)]
+    # Prefill, eager (the step function, op by op from the host, on fresh
+    # caches) and graphed (a replay into the decode graph's reset caches).
     prefill = []
     for _ in range(SERVE_PREFILL_REPS):
         caches = lm.init_caches(cfg, B, eng.max_seq, dev)
@@ -793,8 +814,20 @@ def serve_requests(engine, label: str, shape, dev, smi: str) -> dict:
             lambda: eng.prefill_fn(eng.params, tokens, caches))  # noqa: B023
         prefill.append((ev, host, enq))
     require(bool(torch.isfinite(logits.float()).all()), f"serve set {label}: prefill logits")
-    pre_busy_ms, pre_top, pre_events, _ = device_busy(
+    pre_busy_ms, pre_top, pre_events, pre_launches = device_busy(
         lambda: eng.prefill_fn(eng.params, tokens, lm.init_caches(cfg, B, eng.max_seq, dev)), 1)
+    g_prefill = []
+    for _ in range(SERVE_PREFILL_REPS):
+        lm.reset_caches(graphed.caches)
+        ev, host, enq, first = timed(lambda: graphed_prefill(tokens))
+        g_prefill.append((ev, host, enq))
+    gp_busy_ms, gp_top, gp_events, gp_launches = device_busy(lambda: graphed_prefill(tokens), 1)
+    require(torch.equal(first.argmax(-1), logits.argmax(-1)), f"serve set {label}: graphed "
+            f"prefill's greedy tokens {first.argmax(-1).tolist()} != eager "
+            f"{logits.argmax(-1).tolist()}")
+    pre_vs_eager = float((first.float() - logits.float()).abs().max() / logits.float().abs().max())
+    require(pre_vs_eager <= SERVE_PARITY_TOL, f"serve set {label}: graphed prefill logits off "
+            f"the eager step's by {pre_vs_eager:.4g} x max|logit|")
     top2 = logits.float().topk(2, dim=-1).values
     say(f"serve: set {label} last-position logits: max|logit| "
         f"{float(logits.float().abs().max()):.3f} (final softcap {cfg.final_softcap}), "
@@ -818,10 +851,10 @@ def serve_requests(engine, label: str, shape, dev, smi: str) -> dict:
     busy_ms, top, n_events, launches = device_busy(
         lambda: eng.decode_fn(eng.params, tok, P + G - 1, caches), SERVE_BUSY_REPS)
     del caches, logits
-    # Compiled: the step the engine captured for batch B (the greedy runs
-    # above), replayed on its own caches, reset and prefilled here.
-    graphed = eng.graphs[(B, None)]
-    first, _ = eng.prefill_fn(eng.params, tokens, lm.reset_caches(graphed.caches))
+    # Compiled: the decode graph replayed on its own caches, filled by a
+    # replay of the prefill graph.
+    lm.reset_caches(graphed.caches)
+    first = graphed_prefill(tokens).clone()
     g_ev, g_host, g_enq, graphed_seen = timed(lambda: decode_loop(graphed, first))
     g_busy_ms, g_top, g_events, g_launches = device_busy(lambda: graphed(tok, P + G - 1),
                                                          SERVE_BUSY_REPS)
@@ -836,7 +869,8 @@ def serve_requests(engine, label: str, shape, dev, smi: str) -> dict:
                    for g, e in zip(graphed_seen, eager_seen))
     require(vs_eager <= SERVE_PARITY_TOL, f"serve set {label}: graphed decode logits off the "
             f"eager step's by {vs_eager:.4g} x max|logit|")
-    del eager_seen, graphed_seen, first, graphed
+    capture_s, prefill_capture_s = graphed.capture_s, graphed_prefill.capture_s
+    del eager_seen, graphed_seen, first, graphed, graphed_prefill
 
     # decode parity: prefill P-1 plus one decode step against prefill P
     want, _ = eng.prefill_fn(eng.params, tokens, lm.init_caches(cfg, B, P, dev))
@@ -852,19 +886,29 @@ def serve_requests(engine, label: str, shape, dev, smi: str) -> dict:
     model_flops, work = prefill_flops(cfg, B, P)
     weights, kv = decode_bytes(cfg, B, P, steps)
     pre_ms = [r[0] for r in prefill]
+    gp_ms = [r[0] for r in g_prefill]
     pre_bound = max(work / BF16_TENSOR_FLOPS, weights / HBM_BYTES_PER_S) * 1e3
     dec_ms = dec_ev / steps
     dec_bound = (weights + kv) / HBM_BYTES_PER_S * 1e3
-    say(f"serve: set {label} prefill ({B}x{P} tokens): {', '.join(f'{m:.2f}' for m in pre_ms)} "
-        f"ms by CUDA events ({SERVE_PREFILL_REPS} runs), host clock "
-        f"{', '.join(f'{r[1]:.2f}' for r in prefill)} ms, enqueue "
-        f"{', '.join(f'{r[2]:.2f}' for r in prefill)} ms; bound {pre_bound:.2f} ms (this run's "
+    say(f"serve: set {label} prefill, eager (the step function) ({B}x{P} tokens): "
+        f"{', '.join(f'{m:.2f}' for m in pre_ms)} ms by CUDA events ({SERVE_PREFILL_REPS} runs), "
+        f"host clock {', '.join(f'{r[1]:.2f}' for r in prefill)} ms, enqueue "
+        f"{', '.join(f'{r[2]:.2f}' for r in prefill)} ms, {pre_launches:.0f} host launches; "
+        f"bound {pre_bound:.2f} ms (this run's "
         f"{work / 1e12:.1f} TFLOP at the bf16 peak 989 TFLOP/s; 2·N·tokens "
         f"{model_flops / BF16_TENSOR_FLOPS * 1e3:.2f} ms) -> {pre_bound / pre_ms[-1]:.1%} of "
         f"the bound; device busy "
         f"{busy_text(pre_busy_ms, prefill[-1][1], prefill[-1][2], pre_events, pre_top)} ({smi})")
+    say(f"serve: set {label} prefill, graphed (the engine's captured prefill, captured in "
+        f"{prefill_capture_s:.3f} s with its eager warm-up): "
+        f"{', '.join(f'{m:.2f}' for m in gp_ms)} ms by CUDA events ({SERVE_PREFILL_REPS} "
+        f"replays), host clock {', '.join(f'{r[1]:.2f}' for r in g_prefill)} ms, enqueue "
+        f"{', '.join(f'{r[2]:.3f}' for r in g_prefill)} ms, {gp_launches:.0f} host launches; "
+        f"{pre_bound / gp_ms[-1]:.1%} of the bound, {min(r[1] for r in prefill) / min(r[1] for r in g_prefill):.2f}x "
+        f"the eager step by the host clock; greedy tokens equal to eager, logits within "
+        f"{pre_vs_eager:.4g} x max|logit| of eager (bound {SERVE_PARITY_TOL}); device busy "
+        f"{busy_text(gp_busy_ms, g_prefill[-1][1], g_prefill[-1][2], gp_events, gp_top)} ({smi})")
     g_ms = g_ev / steps
-    capture_s = eng.graphs[(B, None)].capture_s
     say(f"serve: set {label} decode, eager (the step functions): {dec_ms:.4f} ms/step by CUDA "
         f"events over {steps} steps, {dec_host / steps:.4f} ms by the host clock, "
         f"{dec_enq / steps:.4f} ms to enqueue, {launches:.0f} host launches a step; "
@@ -891,7 +935,12 @@ def serve_requests(engine, label: str, shape, dev, smi: str) -> dict:
         f"({dec_ms:.4f} ms eager)")
     return {"prefill_ms": pre_ms, "prefill_host_ms": [r[1] for r in prefill],
             "prefill_enqueue_ms": [r[2] for r in prefill], "prefill_busy_ms": pre_busy_ms,
-            "prefill_bound_ms": pre_bound, "decode_ms": dec_ms,
+            "prefill_host_launches": pre_launches, "prefill_bound_ms": pre_bound,
+            "graphed_prefill_ms": gp_ms, "graphed_prefill_host_ms": [r[1] for r in g_prefill],
+            "graphed_prefill_enqueue_ms": [r[2] for r in g_prefill],
+            "graphed_prefill_busy_ms": gp_busy_ms, "graphed_prefill_host_launches": gp_launches,
+            "graphed_prefill_vs_eager": pre_vs_eager, "prefill_capture_s": prefill_capture_s,
+            "decode_ms": dec_ms,
             "decode_host_ms": dec_host / steps, "decode_enqueue_ms": dec_enq / steps,
             "decode_bound_ms": dec_bound, "decode_busy_ms": busy_ms,
             "decode_device_events": n_events, "decode_host_launches": launches,
@@ -900,7 +949,8 @@ def serve_requests(engine, label: str, shape, dev, smi: str) -> dict:
             "graphed_decode_host_launches": g_launches, "graphed_vs_eager": vs_eager,
             "capture_s": capture_s,
             "tok_per_s": B / (dec_ms * 1e-3), "graphed_tok_per_s": B / (g_ms * 1e-3),
-            "generate_s": generate_s, "parity": parity, "peak_gib": peak / 2**30}
+            "generate_s": generate_s, "generate_again_s": again_s,
+            "graph_pool_gib": pools / 2**30, "parity": parity, "peak_gib": peak / 2**30}
 
 
 def serve_phase(dev: torch.device, smi: str) -> None:
@@ -1262,50 +1312,93 @@ def train_phase(dev: torch.device, smi: str) -> dict:
 
 def scaleout_mesh_runs(dev: torch.device, mesh) -> dict:
     """(a) Every smoke arch served greedily through ``ServeEngine.build(...,
-    mesh=mesh)`` equals the meshless engine on the card, token for token;
-    two AdamW steps of stablelm-3b at full width, depth 2 (float32) through
-    ``build_run(..., mesh=mesh)`` agree with the meshless run."""
+    mesh=mesh)``, compiled (prefill and decode captured on static DTensor
+    inputs) and eager (``compile=False``), equals the meshless compiled
+    engine token for token, with the host's launches a ``generate`` of each;
+    ``SCALE_TRAIN_STEPS`` AdamW steps of stablelm-3b at full width, depth 2
+    (float32) through ``build_run(..., mesh=mesh)``, compiled and eager,
+    agree with the meshless compiled run, with the host's launches of one
+    more step of each."""
+    from torch.distributed.tensor import DTensor
+
+    modes = (("meshless", None, True), ("mesh", mesh, True), ("mesh eager", mesh, False))
+    engines = {name: [] for name, _, _ in modes}
     for i, arch in enumerate(ARCHS):
         cfg = get_smoke_config(arch)
         tokens, cross = serve_inputs(cfg, SERVE_SMOKE[:2], SEED + i)
         B, P = tokens.shape
-        cross = None if cross is None else cross.numpy()
-        outs = [ServeEngine.build(cfg, P + SERVE_SMOKE[2], seed=SEED, device=dev, mesh=m)
-                .generate(tokens.numpy(), SERVE_SMOKE[2], temperature=0.0, cross_embeds=cross)
-                for m in (None, mesh)]
-        require(np.array_equal(outs[0], outs[1]),
-                f"scale-out serve {arch}: tokens on the mesh {outs[1][:, P:].tolist()} != "
-                f"meshless {outs[0][:, P:].tolist()}")
-    say(f"scale-out: ServeEngine on the 1x1 mesh: greedy tokens equal to the meshless engine's "
-        f"for all {len(ARCHS)} smoke archs ({SERVE_SMOKE[0]} prompts of {SERVE_SMOKE[1]}, "
-        f"{SERVE_SMOKE[2]} tokens)")
+        request = (tokens.numpy(), SERVE_SMOKE[2], None if cross is None else cross.numpy())
+        outs = {}
+        for name, m, compile in modes:
+            engine = ServeEngine.build(cfg, P + SERVE_SMOKE[2], seed=SEED, device=dev, mesh=m,
+                                       compile=compile)
+            outs[name] = engine.generate(request[0], request[1], temperature=0.0,
+                                         cross_embeds=request[2])
+            engines[name].append((engine, request))
+            require(engine.compiled == compile, f"scale-out serve {arch} {name}: compiled "
+                    f"{engine.compiled}")
+        graphs = engines["mesh"][-1][0].graphs
+        require(sorted(k[0] for k in graphs) == ["decode", "prefill"] and all(
+            isinstance(g.tokens, DTensor) for g in graphs.values()),
+            f"scale-out serve {arch}: the mesh engine's graphs {list(graphs)}")
+        for name in ("mesh", "mesh eager"):
+            require(np.array_equal(outs[name], outs["meshless"]),
+                    f"scale-out serve {arch}: tokens on the mesh ({name}) "
+                    f"{outs[name][:, P:].tolist()} != meshless {outs['meshless'][:, P:].tolist()}")
+    serve_launches = {}
+    for name in ("mesh", "mesh eager"):  # the second request of each engine: captured already
+        serve_launches[name] = device_busy(lambda: [  # noqa: B023
+            e.generate(r[0], r[1], temperature=0.0, cross_embeds=r[2])
+            for e, r in engines[name]], 1)[3] / len(ARCHS)
+    del engines
+    say(f"scale-out: ServeEngine on the 1x1 mesh, compiled and eager: greedy tokens equal to "
+        f"the meshless engine's for all {len(ARCHS)} smoke archs ({SERVE_SMOKE[0]} prompts of "
+        f"{SERVE_SMOKE[1]}, {SERVE_SMOKE[2]} tokens: a prefill and {SERVE_SMOKE[2] - 1} decode "
+        f"steps); host launches a generate (sampling and copies included), mean over the "
+        f"archs: compiled {serve_launches['mesh']:.1f}, eager {serve_launches['mesh eager']:.1f}")
     cfg = f32_config(dataclasses.replace(get_config(TRAIN_ARCH), n_layers=2))
-    batches = [train_batch(cfg, TRAIN_UNIT, SEED + i, dev) for i in range(SCALE_TRAIN_STEPS)]
-    results = []
-    for m in (None, mesh):
-        run = lm_train.build_run(cfg, "adamw", seed=SEED, device=dev, mesh=m)
+    batches = [train_batch(cfg, TRAIN_UNIT, SEED + i, dev) for i in range(SCALE_TRAIN_STEPS + 1)]
+    results, train_launches = {}, {}
+    for name, m, compile in modes:
+        run = lm_train.build_run(cfg, "adamw", seed=SEED, device=dev, mesh=m, compile=compile)
+        require(isinstance(run.step_fn, GraphedTrainStep) == compile,
+                f"scale-out train {name}: build_run's step {run.step_fn!r}")
         losses = []
-        for batch in batches:
+        for batch in batches[:-1]:
             _, run.opt_state, metrics = run.step_fn(run.params, run.opt_state, dict(batch))
             losses.append(float(metrics["loss"]))
         params = {k: (v.full_tensor() if m is not None else v).detach().clone()
                   for k, v in run.params.state_dict().items()}
-        results.append((losses, params))
-        del run
-    (l0, p0), (l1, p1) = results
-    loss_err = max(abs(a - b) / abs(a) for a, b in zip(l0, l1))
-    require(loss_err <= TRAIN_LOSS_RTOL, f"scale-out train: losses {l1} against {l0}")
-    param_err = max(float((p1[k] - v).abs().max() / v.abs().max().clamp(min=1e-30))
-                    for k, v in p0.items())
-    require(param_err <= SCALE_PARAM_TOL, f"scale-out train: parameters off by {param_err}")
-    say(f"scale-out: build_run on the 1x1 mesh, {cfg.name} at full width, depth 2, float32: "
-        f"{SCALE_TRAIN_STEPS} AdamW steps on {TRAIN_UNIT[0]}x{TRAIN_UNIT[1]} tokens, losses "
-        f"{', '.join(f'{x:.6f}' for x in l1)} against meshless {', '.join(f'{x:.6f}' for x in l0)} "
-        f"(worst {loss_err:.2e} relative, bound {TRAIN_LOSS_RTOL}); parameters within "
-        f"{param_err:.2e} of their largest (bound {SCALE_PARAM_TOL})")
-    del results, p0, p1
+        results[name] = (losses, params)
+        if name != "meshless":
+            train_launches[name] = device_busy(
+                lambda: run.step_fn(run.params, run.opt_state, dict(batches[-1])), 1)[3]  # noqa: B023
+        del run, params
+    l0, p0 = results.pop("meshless")
+    errs = {}
+    for name, (l1, p1) in results.items():
+        loss_err = max(abs(a - b) / abs(a) for a, b in zip(l0, l1))
+        require(loss_err <= TRAIN_LOSS_RTOL, f"scale-out train {name}: losses {l1} against {l0}")
+        param_err = max(float((p1[k] - v).abs().max() / v.abs().max().clamp(min=1e-30))
+                        for k, v in p0.items())
+        require(param_err <= SCALE_PARAM_TOL,
+                f"scale-out train {name}: parameters off by {param_err}")
+        errs[name] = (loss_err, param_err)
+        say(f"scale-out: build_run on the 1x1 mesh ({name}), {cfg.name} at full width, depth 2, "
+            f"float32: {SCALE_TRAIN_STEPS} AdamW steps on {TRAIN_UNIT[0]}x{TRAIN_UNIT[1]} "
+            f"tokens, losses {', '.join(f'{x:.6f}' for x in l1)} against meshless compiled "
+            f"{', '.join(f'{x:.6f}' for x in l0)} (worst {loss_err:.2e} relative, bound "
+            f"{TRAIN_LOSS_RTOL}); parameters within {param_err:.2e} of their largest (bound "
+            f"{SCALE_PARAM_TOL}); {train_launches[name]:.0f} host launches a step")
+    del results, p0
     torch.cuda.empty_cache()
-    return {"train_loss_rel_err": loss_err, "train_param_err": param_err}
+    return {"train_loss_rel_err": errs["mesh"][0], "train_param_err": errs["mesh"][1],
+            "eager_train_loss_rel_err": errs["mesh eager"][0],
+            "eager_train_param_err": errs["mesh eager"][1],
+            "serve_host_launches": serve_launches["mesh"],
+            "eager_serve_host_launches": serve_launches["mesh eager"],
+            "train_host_launches": train_launches["mesh"],
+            "eager_train_host_launches": train_launches["mesh eager"]}
 
 
 def scaleout_compression(dev: torch.device, mesh, smi: str) -> dict:

@@ -14,9 +14,16 @@ eager step launched at capture, on the tensors it launched them on; so
 * its outputs live in the graph's memory pool and are overwritten by the
   next replay: callers copy what they keep.
 
-Capture happens on the card only, with no mesh; a capture that fails
-raises, and nothing falls back to the eager step.  On the CPU and on a mesh
-the steps run eagerly (see ``launch/serve.py`` and ``launch/train.py``).
+As ``jax.jit`` traces once for each input shape, the serving steps are
+captured once for each shape: decode for each batch size, prefill for each
+(batch size, prompt length).  On a ``DeviceMesh`` of the card the static
+inputs are DTensors, placed once as ``parallel.sharding`` places the step's
+inputs, and each call copies this rank's shard of its input into them; the
+step runs under ``on_mesh`` and gathers its outputs whole inside the graph.
+
+Capture happens on the card only; a capture that fails raises, and nothing
+falls back to the eager step.  On the CPU (and a gloo mesh) the steps run
+eagerly (see ``launch/serve.py`` and ``launch/train.py``).
 """
 
 from __future__ import annotations
@@ -24,8 +31,12 @@ from __future__ import annotations
 import time
 
 import torch
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
 from repro_torch.models import transformer as tfm
+from repro_torch.models.spmd import full, on_mesh
+from repro_torch.parallel import sharding
 
 
 def _leaves(tree) -> list:
@@ -36,42 +47,136 @@ def _leaves(tree) -> list:
     return [tree]
 
 
+@torch.no_grad()
+def _storage(t: torch.Tensor) -> int:
+    """Where ``t``'s values live: a DTensor's local shard's address."""
+    return (t.to_local() if isinstance(t, DTensor) else t).data_ptr()
+
+
+def new_pool():
+    """A memory pool for graphs that may share one."""
+    return torch.cuda.graph_pool_handle()
+
+
+def _warm(step):
+    """``step()`` once on a side stream, so that lazy initialisation
+    (cuBLAS's workspaces among it) happens outside the capture; returns
+    its result."""
+    cur = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        out = step()
+    cur.wait_stream(side)
+    return out
+
+
+def _capture(step, pool=None):
+    """``step()`` captured → (the graph, the step's output in the graph's
+    memory).  Unsafe calls are refused on this thread only: another thread,
+    such as a process group's watchdog querying its events, may go on."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool, capture_error_mode="thread_local"):
+        out = step()
+    return graph, out
+
+
+def _static(t: torch.Tensor, mesh) -> torch.Tensor:
+    """A buffer holding a copy of ``t``, placed by ``batch_specs`` on a
+    mesh."""
+    t = t.clone()
+    if mesh is None:
+        return t
+    return sharding.place(t, mesh, sharding.batch_specs(t, mesh=mesh))
+
+
+@torch.no_grad()
+def _copy_in(static: torch.Tensor, value: torch.Tensor) -> None:
+    """``value`` (an input whole, as every rank holds it) into ``static``:
+    for a DTensor, this rank's shard of it as ``static`` is placed, copied
+    into the local shard without communication."""
+    if isinstance(static, DTensor) and not isinstance(value, DTensor):
+        shape, offset = compute_local_shape_and_global_offset(
+            value.shape, static.device_mesh, static.placements)
+        value = value[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+        static = static.to_local()
+    static.copy_(value)
+
+
 class GraphedDecode:
     """``decode_fn(params, tokens, position, caches, cross_embeds)``
     captured for one batch: static tokens [B, 1] (int64), a 0-d int32
     position and ``caches`` of ``max_seq`` positions, all on the card and
     owned here, and, for a model that attends to image patches, static
-    ``cross_embeds`` of ``cross_shape``.  The caller fills the caches (reset
-    and prefill, eagerly), then calls it once a token."""
+    ``cross`` embeddings of ``cross_shape``.  On a ``mesh`` the tokens,
+    caches and embeddings are DTensors placed by ``batch_specs`` and
+    ``cache_specs``, and the logits are gathered whole in the graph.  The
+    caller fills the caches (reset, then prefill: :class:`GraphedPrefill`
+    writes into these), then calls it once a token."""
 
     def __init__(self, decode_fn, params, cfg, batch: int, max_seq: int, device,
-                 cross_shape=None, cross_dtype=None):
-        self.tokens = torch.zeros((batch, 1), dtype=torch.int64, device=device)
+                 cross_shape=None, cross_dtype=None, *, mesh=None, pool=None):
+        self.mesh = mesh
+        self.tokens = _static(torch.zeros((batch, 1), dtype=torch.int64, device=device), mesh)
         self.position = torch.zeros((), dtype=torch.int32, device=device)
         self.caches = tfm.init_caches(cfg, batch, max_seq, device)
-        self.cross = None if cross_shape is None else torch.zeros(
-            cross_shape, dtype=cross_dtype, device=device)
-        step = lambda: decode_fn(  # noqa: E731
-            params, self.tokens, self.position, self.caches, self.cross)[0]
+        if mesh is not None:
+            self.caches = sharding.place_tree(
+                self.caches, sharding.cache_specs(self.caches, cfg, mesh=mesh), mesh)
+        self.cross = None if cross_shape is None else _static(
+            torch.zeros(cross_shape, dtype=cross_dtype, device=device), mesh)
+
+        def step():
+            with on_mesh(mesh):
+                return full(decode_fn(params, self.tokens, self.position, self.caches,
+                                      self.cross)[0])
+
         t0 = time.perf_counter()
-        # One step on a side stream first: lazy initialisation (cuBLAS's
-        # workspaces among it) happens outside the capture.
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            step()
-        torch.cuda.current_stream().wait_stream(side)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.logits = step()
+        _warm(step)
+        self.graph, self.logits = _capture(step, pool)
         self.capture_s = time.perf_counter() - t0  # the warm-up step and the capture
         tfm.reset_caches(self.caches)
 
+    def set_cross(self, cross: torch.Tensor) -> None:
+        _copy_in(self.cross, cross)
+
     def __call__(self, tokens: torch.Tensor, position: int) -> torch.Tensor:
         """One decode step of ``tokens`` [B, 1] at ``position`` → logits
-        [B, V], a static buffer the next call overwrites."""
-        self.tokens.copy_(tokens)
+        [B, V], a static buffer the next replay overwrites."""
+        _copy_in(self.tokens, tokens)
         self.position.fill_(position)
+        self.graph.replay()
+        return self.logits
+
+
+class GraphedPrefill:
+    """``prefill_fn(params, tokens, caches, cross_embeds)`` captured for one
+    prompt shape [B, P] on static tokens (int64; on a mesh placed by
+    ``batch_specs``), writing into the caches of ``decode``, the
+    :class:`GraphedDecode` of batch B, and reading its ``cross`` buffer:
+    decode then goes on from what the replayed prefill wrote.  The caller
+    resets those caches first."""
+
+    def __init__(self, prefill_fn, params, decode: GraphedDecode, prompt_len: int, *,
+                 pool=None):
+        batch = decode.tokens.shape[0]
+        self.tokens = _static(torch.zeros((batch, prompt_len), dtype=torch.int64,
+                                          device=decode.position.device), decode.mesh)
+
+        def step():
+            with on_mesh(decode.mesh):
+                return full(prefill_fn(params, self.tokens, decode.caches, decode.cross)[0])
+
+        t0 = time.perf_counter()
+        _warm(step)
+        self.graph, self.logits = _capture(step, pool)
+        self.capture_s = time.perf_counter() - t0  # the warm-up prefill and the capture
+
+    def __call__(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Prefill of ``tokens`` [B, P] into the decode graph's caches →
+        last-position logits [B, V], a static buffer the next replay
+        overwrites."""
+        _copy_in(self.tokens, tokens)
         self.graph.replay()
         return self.logits
 
@@ -81,53 +186,56 @@ class GraphedTrainStep:
     eagerly on a side stream (a real step, counted as one), frees the
     cached blocks it left, and captures the whole step (forward, backward,
     clipping, the update) on that call's ``params`` and ``opt_state`` and on
-    static copies of its batch; every later call copies its batch into them
-    and replays.  The captured step updates those very tensors, so a call
-    must pass them (a restore copies into them); the returned metrics are
+    static copies of its batch (on a ``mesh``, placed by ``batch_specs``;
+    ``step_fn`` then runs under ``on_mesh`` and its metrics are gathered
+    whole in the graph); every later call copies its batch into them and
+    replays.  The captured step updates those very tensors, so a call must
+    pass them (a restore copies into them); the returned metrics are
     copies."""
 
-    def __init__(self, step_fn):
+    def __init__(self, step_fn, mesh=None):
         self.step_fn = step_fn
+        self.mesh = mesh
         self.graph = None
+
+    def _step(self, params, opt_state, batch):
+        with on_mesh(self.mesh):
+            params, opt_state, metrics = self.step_fn(params, opt_state, batch)
+        return params, opt_state, {k: full(v) for k, v in metrics.items()}
 
     def __call__(self, params, opt_state, batch: dict):
         if self.graph is None:
             return self._first(params, opt_state, batch)
-        if params is not self.params or any(
-                a is not b for a, b in zip(_leaves(opt_state), self.state, strict=True)) or any(
-                a is not b for a, b in zip(params.parameters(), self.weights, strict=True)):
+        tensors = [*params.parameters(), *_leaves(opt_state)]
+        if params is not self.params or len(tensors) != len(self.tensors) or any(
+                a is not b or _storage(a) != ptr
+                for a, (b, ptr) in zip(tensors, self.tensors)):
             raise ValueError("the captured train step updates the parameters and optimizer "
                              "state it was captured on: pass those (restore by copying into "
-                             "them)")
+                             "them; another mesh needs a new run)")
         if set(batch) != set(self.batch) or any(
                 v.shape != self.batch[k].shape or v.dtype != self.batch[k].dtype
                 for k, v in batch.items()):
             raise ValueError(f"the train step was captured for batches "
                              f"{ {k: (tuple(v.shape), v.dtype) for k, v in self.batch.items()} }")
         for k, v in batch.items():
-            self.batch[k].copy_(v)
+            _copy_in(self.batch[k], v)
         self.graph.replay()
         return params, self.opt_state, {k: v.clone() for k, v in self.metrics.items()}
 
     def _first(self, params, opt_state, batch):
-        cur = torch.cuda.current_stream()
-        side = torch.cuda.Stream()
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            params, opt_state, metrics = self.step_fn(params, opt_state, batch)
-        cur.wait_stream(side)
+        self.batch = {k: _static(v, self.mesh) for k, v in batch.items()}
+        params, opt_state, metrics = _warm(lambda: self._step(params, opt_state, self.batch))
         # The eager step's transient blocks go back to the driver before the
         # graph's private pool takes its own: both at once could pass the
         # card's memory.
-        cur.synchronize()
+        torch.cuda.current_stream().synchronize()
         torch.cuda.empty_cache()
         self.params, self.opt_state = params, opt_state
-        self.state, self.weights = _leaves(opt_state), list(params.parameters())
-        self.batch = {k: v.clone() for k, v in batch.items()}
+        self.tensors = [(t, _storage(t)) for t in (*params.parameters(), *_leaves(opt_state))]
         t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            _, _, self.metrics = self.step_fn(params, opt_state, self.batch)
+        graph, (_, _, self.metrics) = _capture(
+            lambda: self._step(params, opt_state, self.batch))
         self.capture_s = time.perf_counter() - t0
         self.graph = graph
         return params, opt_state, metrics

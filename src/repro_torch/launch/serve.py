@@ -1,14 +1,16 @@
 """Serving engine: batched prefill + decode with temperature sampling.
 
 The same two steps the reference's serving engine jits, on one CUDA card
-(``device=None``) or, when asked, on the CPU.  On the card the decode step
-is compiled as the reference's is: captured once per batch size as a CUDA
-graph (``launch.graphs.GraphedDecode``) on caches the engine owns, and
-replayed once a token; prefill and sampling run eagerly.  Given a
-``DeviceMesh`` (``launch.mesh.make_host_mesh``), the parameters, caches and
-prompts are DTensors placed by ``parallel.sharding``'s ``param_specs``,
-``cache_specs`` and ``batch_specs``, and every rank of the mesh runs the
-same steps, eagerly, on its shards; so does the CPU.
+(``device=None``) or, when asked, on the CPU.  On the card both steps are
+compiled as the reference's are: decode is captured as a CUDA graph once
+per batch size (``launch.graphs.GraphedDecode``) on caches the engine owns
+and replayed once a token, and prefill once per prompt shape
+(``GraphedPrefill``), writing into those caches; sampling runs eagerly.
+Given a ``DeviceMesh`` (``launch.mesh.make_host_mesh``), the parameters,
+caches and prompts are DTensors placed by ``parallel.sharding``'s
+``param_specs``, ``cache_specs`` and ``batch_specs``, and every rank of the
+mesh runs the same steps on its shards: captured on the card, eagerly on
+the CPU (a gloo mesh), as everything is there.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
       --batch 4 --prompt-len 512 --gen 32
@@ -28,7 +30,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import steps as steps_mod
-from repro_torch.launch.graphs import GraphedDecode
+from repro_torch.launch.graphs import GraphedDecode, GraphedPrefill, new_pool
 from repro_torch.launch.mesh import check_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.spmd import full, on_mesh
@@ -41,28 +43,37 @@ class ServeEngine:
     """``params`` served with caches of ``max_seq`` positions on ``device``
     (and, with a ``mesh``, sharded over it); ``build`` draws a fresh serving
     model, and the constructor serves a model the caller already holds (any
-    dtypes)."""
+    dtypes).  ``compile=False`` runs the steps op by op on the card too, as
+    ``jax.disable_jit`` does the reference's."""
     cfg: ModelConfig
     params: tfm.Transformer
     max_seq: int
     device: torch.device
     mesh: object = None
+    compile: bool = True
     prefill_fn: object = dataclasses.field(init=False, repr=False)
     decode_fn: object = dataclasses.field(init=False, repr=False)
     graphs: dict = dataclasses.field(init=False, repr=False)
+    pool: object = dataclasses.field(init=False, repr=False)
 
     def __post_init__(self):
         self.prefill_fn = steps_mod.make_prefill_step(self.cfg)
         self.decode_fn = steps_mod.make_decode_step(self.cfg)
-        self.graphs = {}  # (batch, cross_embeds' shape and dtype) → GraphedDecode
+        # ("decode", batch, cross) → GraphedDecode; ("prefill", batch, prompt
+        # length, cross) → GraphedPrefill; cross: the cross_embeds' shape and
+        # dtype, or None
+        self.graphs = {}
+        self.pool = None  # the memory pool the engine's graphs share
 
     @property
     def compiled(self) -> bool:
-        """Whether decode replays a captured step: on the card, with no mesh."""
-        return self.device.type == "cuda" and self.mesh is None
+        """Whether prefill and decode replay captured steps: on the card,
+        with or without a mesh."""
+        return self.device.type == "cuda" and self.compile
 
     @classmethod
-    def build(cls, cfg: ModelConfig, max_seq: int, seed: int = 0, device=None, mesh=None):
+    def build(cls, cfg: ModelConfig, max_seq: int, seed: int = 0, device=None, mesh=None,
+              compile: bool = True):
         """The serving model (``serve_config(cfg)``: bf16 weights) with
         parameters drawn from a ``torch.Generator`` seeded with ``seed`` on
         ``device`` (``None`` = the CUDA card; ``RuntimeError`` without one
@@ -76,7 +87,8 @@ class ServeEngine:
             check_device(mesh, device)
             sharding.distribute_params(
                 params, sharding.param_specs(params.state_dict(), scfg, mesh=mesh), mesh)
-        return cls(cfg=scfg, params=params, max_seq=max_seq, device=device, mesh=mesh)
+        return cls(cfg=scfg, params=params, max_seq=max_seq, device=device, mesh=mesh,
+                   compile=compile)
 
     def generate(self, prompts: np.ndarray, gen_len: int, *, temperature: float = 1.0,
                  seed: int = 0, cross_embeds=None, return_logits: bool = False):
@@ -86,51 +98,75 @@ class ServeEngine:
         stream is not ``jax.random``'s).  With ``return_logits`` it returns
         the tokens and the ``gen_len`` [B, V] logits each token was drawn
         from (prefill's, then each decode step's), on the device, each its
-        own copy.  On the card, decode replays the step captured for this
-        batch size, on the caches it owns: they are reset and prefilled
-        here."""
+        own copy.  On the card the steps are replayed: decode captured for
+        this batch size on caches it owns, prefill for this prompt shape
+        into those caches, which are reset here; the first request of a
+        shape pays for its capture."""
         B, P = prompts.shape
         dev = self.device
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.int64).to(dev)
         cross = None if cross_embeds is None else torch.as_tensor(cross_embeds).to(dev)
-        if self.compiled:
-            graphed = self._graphed(B, cross)
-            caches = tfm.reset_caches(graphed.caches)
-            if cross is not None:
-                cross = graphed.cross.copy_(cross)
-            decode = graphed
-        else:
-            caches = tfm.init_caches(self.cfg, B, self.max_seq, dev)
-            if self.mesh is not None:
-                caches = sharding.place_tree(
-                    caches, sharding.cache_specs(caches, self.cfg, mesh=self.mesh), self.mesh)
-                if cross is not None:
-                    cross = self._batch(cross)
-            decode = lambda tok, pos: self.decode_fn(  # noqa: E731
-                self.params, self._batch(tok), pos, caches, cross)[0]
+        prefill, decode = self._graphed(B, P, cross) if self.compiled else self._eager(B, cross)
         generator = torch.Generator(device=dev).manual_seed(seed)
         out, seen = [tokens], []
-        with on_mesh(self.mesh):
-            logits, _ = self.prefill_fn(self.params, self._batch(tokens), caches, cross)
-            for i in range(gen_len):
-                if i:
-                    logits = decode(out[-1], P + i - 1)
-                logits = full(logits)
-                if return_logits:  # a replay overwrites its logits
-                    seen.append(logits.clone())
-                out.append(_sample(logits, generator, temperature))
+        logits = prefill(tokens)
+        for i in range(gen_len):
+            if i:
+                logits = decode(out[-1], P + i - 1)
+            if return_logits:  # a replay overwrites its logits
+                seen.append(logits.clone())
+            out.append(_sample(logits, generator, temperature))
         out = torch.cat(out, dim=1).cpu().numpy().astype(np.int32)
         return (out, seen) if return_logits else out
 
-    def _graphed(self, batch: int, cross) -> GraphedDecode:
-        """The decode step captured for ``batch`` (and the VLM's
-        ``cross_embeds`` shape), captured on first use."""
-        key = (batch, None if cross is None else (tuple(cross.shape), cross.dtype))
-        if key not in self.graphs:
-            self.graphs[key] = GraphedDecode(
+    def _graphed(self, batch: int, prompt_len: int, cross):
+        """The captured prefill for [batch, prompt_len] and decode for
+        ``batch`` (and the VLM's ``cross_embeds`` shape), each captured on
+        first use, with the decode caches reset and ``cross`` copied in.
+
+        The engine's graphs share one memory pool: a replay may overwrite
+        what another graph of the engine left in it.  That is safe here,
+        since the steps never run at once, their caches and inputs live
+        outside the pool, and each replay's logits are sampled (or copied)
+        before the next replay."""
+        key = None if cross is None else (tuple(cross.shape), cross.dtype)
+        if self.pool is None:
+            self.pool = new_pool()
+        if ("decode", batch, key) not in self.graphs:
+            self.graphs[("decode", batch, key)] = GraphedDecode(
                 self.decode_fn, self.params, self.cfg, batch, self.max_seq, self.device,
-                *(() if cross is None else (cross.shape, cross.dtype)))
-        return self.graphs[key]
+                *(() if cross is None else (cross.shape, cross.dtype)), mesh=self.mesh,
+                pool=self.pool)
+        decode = self.graphs[("decode", batch, key)]
+        if ("prefill", batch, prompt_len, key) not in self.graphs:
+            self.graphs[("prefill", batch, prompt_len, key)] = GraphedPrefill(
+                self.prefill_fn, self.params, decode, prompt_len, pool=self.pool)
+        prefill = self.graphs[("prefill", batch, prompt_len, key)]
+        tfm.reset_caches(decode.caches)
+        if cross is not None:
+            decode.set_cross(cross)
+        return prefill, decode
+
+    def _eager(self, batch: int, cross):
+        """Prefill and decode run op by op on fresh caches (on a mesh placed
+        by ``cache_specs``, with each input placed by ``batch_specs``)."""
+        caches = tfm.init_caches(self.cfg, batch, self.max_seq, self.device)
+        if self.mesh is not None:
+            caches = sharding.place_tree(
+                caches, sharding.cache_specs(caches, self.cfg, mesh=self.mesh), self.mesh)
+            if cross is not None:
+                cross = self._batch(cross)
+
+        def prefill(tokens):
+            with on_mesh(self.mesh):
+                return full(self.prefill_fn(self.params, self._batch(tokens), caches, cross)[0])
+
+        def decode(tokens, position):
+            with on_mesh(self.mesh):
+                return full(self.decode_fn(self.params, self._batch(tokens), position, caches,
+                                           cross)[0])
+
+        return prefill, decode
 
     def _batch(self, t: torch.Tensor) -> torch.Tensor:
         """An input as the steps take it: placed by ``batch_specs`` on a

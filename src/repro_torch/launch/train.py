@@ -2,10 +2,10 @@
 tolerance and straggler monitoring, on the CUDA card (the CPU when asked),
 and, given a ``DeviceMesh``, sharded over its ranks: parameters, optimizer
 state and batches are then DTensors placed by ``parallel.sharding``.  On
-the card with no mesh the step is compiled, as the reference jits it: the
-first step runs eagerly, then the whole step is captured as a CUDA graph
-and replayed (``launch.graphs.GraphedTrainStep``).  On the CPU and on a
-mesh it runs eagerly.
+the card, with or without a mesh, the step is compiled, as the reference
+jits it: the first step runs eagerly, then the whole step is captured as a
+CUDA graph and replayed (``launch.graphs.GraphedTrainStep``).  On the CPU
+(and a gloo mesh) it runs eagerly.
 Usage:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-3b --smoke \
@@ -55,7 +55,7 @@ class TrainRun:
 
 
 def build_run(cfg, optimizer_name="adamw", seed=0, device=None, mesh=None,
-              fsdp=False) -> TrainRun:
+              fsdp=False, compile=True) -> TrainRun:
     """The model drawn from ``seed`` and its optimizer state on ``device``
     (``None`` = the CUDA card; ``RuntimeError`` without one unless
     ``device="cpu"``).  With a ``mesh`` (on ``device``'s type) every rank
@@ -63,9 +63,11 @@ def build_run(cfg, optimizer_name="adamw", seed=0, device=None, mesh=None,
     count stays a whole scalar on the device) keep their shards by
     ``param_specs`` (``fsdp`` also splits the non-TP dim over ``data``), the
     step places each batch by ``batch_specs``, and its metrics are whole on
-    every rank.  On the card with no mesh ``step_fn`` is compiled: its
-    first call runs eagerly, later calls replay that step captured as a
-    CUDA graph; a capture that fails raises."""
+    every rank.  On the card, with or without a mesh, ``step_fn`` is
+    compiled: its first call runs eagerly, later calls replay that step
+    captured as a CUDA graph; a capture that fails raises.
+    ``compile=False`` runs every step eagerly on the card too, as
+    ``jax.disable_jit`` does the reference's."""
     device = resolve_device(device)
     _, optimizer = steps_mod.choose_optimizer(cfg, optimizer_name)
     params = tfm.init_params(cfg, seed, device)
@@ -78,16 +80,17 @@ def build_run(cfg, optimizer_name="adamw", seed=0, device=None, mesh=None,
         specs = sharding.param_specs(opt_state, cfg, fsdp=fsdp, mesh=mesh)
         opt_state = {k: v if k == "step" else sharding.place_tree(v, specs[k], mesh)
                      for k, v in opt_state.items()}
+    if device.type == "cuda" and compile:
+        step_fn = GraphedTrainStep(step_fn, mesh)
+    elif mesh is not None:
         step_fn = _sharded_step(step_fn, mesh)
-    elif device.type == "cuda":
-        step_fn = GraphedTrainStep(step_fn)
     return TrainRun(cfg=cfg, step_fn=step_fn, params=params, opt_state=opt_state, step=0,
                     mesh=mesh)
 
 
 def _sharded_step(step_fn, mesh):
-    """``step_fn`` on ``mesh``: the batch placed by ``batch_specs``, the
-    metrics gathered whole."""
+    """``step_fn`` run eagerly on ``mesh``: the batch placed by
+    ``batch_specs``, the metrics gathered whole."""
     def step(params, opt_state, batch):
         batch = sharding.place_tree(batch, sharding.batch_specs(batch, mesh=mesh), mesh)
         with on_mesh(mesh):

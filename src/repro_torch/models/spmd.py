@@ -224,7 +224,9 @@ def local_heads(q, k, v, cache: dict | None):
     if need == [i // G for i in range(kl.shape[2] * G)]:
         expand = lambda kv: kv  # noqa: E731  whole groups
     else:
-        idx = torch.tensor(need, dtype=torch.long, device=ql.device)
+        # made on the device (a copy from the host could not be captured)
+        idx = torch.arange(ql.shape[2], device=ql.device).add_(h0).div_(
+            G, rounding_mode="floor").sub_(k0)
         expand = lambda kv: kv.index_select(2, idx)  # noqa: E731
     local_cache = None if cache is None else {
         name: t.to_local() if isinstance(t, DTensor) else t for name, t in cache.items()}

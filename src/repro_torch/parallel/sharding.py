@@ -241,7 +241,12 @@ def place(tensor: torch.Tensor, mesh: DeviceMesh, spec: P) -> DTensor:
     ``spec``.  A ``meta`` tensor becomes a DTensor of ``meta`` shards
     without any collective (the dry run); any other is split by
     ``distribute_tensor``."""
-    placements = to_placements(spec, mesh)
+    # A dim of one element split one way is that element whole.  DTensor's
+    # view rules refuse to fold a sharded dim of size 1 away (a batch of one
+    # prompt, [1, T, d] @ [d, n]), so such a dim is placed replicated.
+    placements = tuple(
+        Replicate() if isinstance(p, Shard) and tensor.shape[p.dim] == 1 and mesh.size(i) == 1
+        else p for i, p in enumerate(to_placements(spec, mesh)))
     if tensor.is_meta:
         local, _ = compute_local_shape_and_global_offset(tensor.shape, mesh, placements)
         return DTensor.from_local(torch.empty(local, dtype=tensor.dtype, device="meta"), mesh,

@@ -1,15 +1,23 @@
 """What the compiled step (``launch/graphs.py``, a CUDA graph on the card)
-needs of the port's step functions, checked on the CPU: the decode and
-train steps read nothing back to the host, the recurrent decode states and
-the optimizer's step count are written in place, a restore copies into the
-run's own tensors, and a decode with a tensor position still gives the
-reference engine's tokens.  The graphs themselves are captured and held
-against the eager steps on the card (``tests/test_torch_gpu.py``).
+needs of the port's step functions, checked on the CPU: the prefill, decode
+and train steps read nothing back to the host, with and without a one-rank
+gloo mesh (the guard sees DTensor's local ops too); the recurrent decode
+states and the optimizer's step count are written in place; prefill into
+reset caches equals prefill into fresh ones; a restore copies into the
+run's own tensors; and a decode with a tensor position still gives the
+reference engine's tokens.  The engine's graph plumbing (prefill captured
+per prompt shape into the decode graph's caches, the static inputs, on a
+mesh DTensors) runs on the CPU with a stand-in capture whose replay runs
+the step again (``fake_graphs``); the graphs themselves are captured and
+held against the eager steps on the card (``tests/test_torch_gpu.py``).
+The CPU and gloo meshes stay eager.
 
 Tolerances: tokens, ``data_ptr``s and step counts are compared exactly; a
 restored CPU run is held to an uninterrupted one exactly (``torch.equal``:
 the CPU's kernels are deterministic); decode logits with a tensor position
-equal those with an int exactly (the same ops on the same values).
+equal those with an int exactly (the same ops on the same values); so do
+caches prefilled after a reset and fresh ones, and the stand-in graphs'
+logits and the eager engine's.
 """
 
 import dataclasses
@@ -18,6 +26,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from _torch_lm import f32, inputs, to_numpy
@@ -27,7 +37,8 @@ from repro.launch.mesh import make_host_mesh
 from repro_torch import convert
 from repro_torch.configs import ARCHS, get_smoke_config
 from repro_torch.data.pipeline import DataConfig, SyntheticStream
-from repro_torch.launch import serve, steps, train
+from repro_torch.launch import graphs, serve, steps, train
+from repro_torch.launch.mesh import make_host_mesh as torch_host_mesh
 from repro_torch.models import attention
 from repro_torch.models import transformer as T
 from test_torch_serve import DECODE_ARCHS
@@ -38,9 +49,13 @@ B, P, STEPS = 2, 10, 4  # a 10-token prompt and 4 steps pass gemma2's 8-slot win
 class NoHostRead(TorchDispatchMode):
     """Fails on ``aten._local_scalar_dense``, the op behind every ``int()``,
     ``float()``, ``bool()`` and ``.item()`` of a tensor: on the card such a
-    read would freeze a value into a captured graph or break the capture."""
+    read would freeze a value into a captured graph or break the capture.
+    An op on DTensors is handed to DTensor, whose ops on the local shards
+    then come through here too."""
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
         if func is torch.ops.aten._local_scalar_dense.default:
             raise AssertionError("the step reads a tensor back to the host")
         return func(*args, **(kwargs or {}))
@@ -49,6 +64,27 @@ class NoHostRead(TorchDispatchMode):
 def test_the_guard_catches_a_host_read():
     with pytest.raises(AssertionError, match="host"), NoHostRead():
         int(torch.arange(3).sum())
+
+
+@pytest.fixture
+def gloo_mesh():
+    """A 1×1 mesh on a gloo group of one rank in this process, taken down
+    afterwards (a process has one default group)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    yield torch_host_mesh(device="cpu")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def test_the_guard_catches_a_host_read_of_a_dtensor(gloo_mesh):
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    x = distribute_tensor(torch.arange(6.0), gloo_mesh, [Replicate(), Replicate()])
+    with NoHostRead():
+        y = (x * 2).sum()
+    with pytest.raises(AssertionError, match="host"), NoHostRead():
+        float(y)
 
 
 def _decode_case(arch: str, changes: dict):
@@ -230,3 +266,223 @@ def test_cpu_steps_run_eagerly_with_widened_products():
     assert run.step_fn.__name__ == "train_step"
     x = torch.zeros((1, 2, 3), dtype=torch.bfloat16)
     assert not attention._tensor_cores(x, x)
+
+
+# ------------------------------------------------------------ prefill, captured
+
+DECODE_CASES = [pytest.param(a, {}, id=a) for a in ARCHS] + [
+    pytest.param("musicgen_large", {"opt_kv_quant": True}, id="musicgen_large-int8_kv")]
+
+
+@pytest.mark.parametrize("arch,changes", DECODE_CASES)
+def test_prefill_step_reads_nothing_back(arch, changes):
+    """Prefill of every smoke arch (musicgen once more with int8 KV) under
+    the guard: its ``P`` = 10 tokens pass gemma2's 8-slot window, so the
+    ring wraps.  Its logits and caches equal those of the same prefill
+    outside the guard."""
+    cfg, model, tokens, cross = _decode_case(arch, changes)
+    runs = []
+    for guard in (NoHostRead, torch.no_grad):
+        caches = T.init_caches(cfg, B, P + STEPS, "cpu")
+        with guard():
+            logits, caches = T.prefill(model, tokens[:, :P], cfg, caches, cross_embeds=cross)
+        runs.append((logits, caches))
+    (got, got_caches), (want, want_caches) = runs
+    assert torch.equal(got, want)
+    for a, b in zip(got_caches, want_caches):
+        assert all(torch.equal(a[k], b[k]) for k in b)
+    if "local" in cfg.layer_kinds():
+        ring = got_caches[cfg.layer_kinds().index("local")]
+        assert ring["k"].shape[1] == cfg.window < P
+        assert sorted(ring["pos"].tolist()) == list(range(P - cfg.window, P))
+
+
+@pytest.mark.parametrize("arch,changes", DECODE_CASES)
+def test_prefill_into_reset_caches_equals_fresh(arch, changes):
+    """Caches that took another prompt's prefill and two decode steps, then
+    ``reset_caches``, take a prefill exactly as fresh caches do, entry by
+    entry: the captured prefill writes into the decode graph's caches after
+    such a reset."""
+    cfg, model, tokens, cross = _decode_case(arch, changes)
+    used = T.init_caches(cfg, B, P + STEPS, "cpu")
+    _, used = T.prefill(model, tokens[:, STEPS:STEPS + P], cfg, used, cross_embeds=cross)
+    for i in range(2):
+        _, used = T.decode_step(model, tokens[:, i:i + 1], P + i, cfg, used, cross_embeds=cross)
+    got, got_caches = T.prefill(model, tokens[:, :P], cfg, T.reset_caches(used),
+                                cross_embeds=cross)
+    want, want_caches = T.prefill(model, tokens[:, :P], cfg, T.init_caches(cfg, B, P + STEPS,
+                                                                           "cpu"),
+                                  cross_embeds=cross)
+    assert torch.equal(got, want)
+    for a, b in zip(got_caches, want_caches):
+        assert set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in b)
+
+
+def _guarded(step):
+    with NoHostRead():
+        return step()
+
+
+class _Replay:
+    """A captured step's stand-in on the CPU: a replay runs the step again,
+    under the guard, and writes its output into the tensors the capture
+    returned."""
+
+    def __init__(self, step, out):
+        self.step, self.out = step, out
+
+    def replay(self):
+        for old, new in zip(graphs._leaves(self.out), graphs._leaves(_guarded(self.step))):
+            if isinstance(old, torch.Tensor) and old is not new:
+                old.copy_(new)
+
+
+@pytest.fixture
+def fake_graphs(monkeypatch):
+    """The compiled paths on the CPU: an engine with ``compile`` on replays
+    its steps, each capture is a ``_Replay`` (the warm-up runs the step,
+    the capture runs it once more), every run of a step that the card
+    would capture is under the guard (the host work around it, such as
+    copying an input into the static buffers, is not), and the card's
+    stream calls do nothing."""
+    def capture(step, pool=None):
+        out = _guarded(step)
+        return _Replay(step, out), out
+
+    monkeypatch.setattr(graphs, "_warm", _guarded)
+    monkeypatch.setattr(graphs, "_capture", capture)
+    monkeypatch.setattr(serve, "new_pool", object)
+    monkeypatch.setattr(serve.ServeEngine, "compiled", property(lambda self: self.compile))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("Stream", (), {"synchronize": lambda self: None})())
+
+
+def _cross_key(cross):
+    return None if cross is None else (tuple(cross.shape), cross.dtype)
+
+
+@pytest.mark.parametrize("arch,changes", DECODE_CASES)
+def test_compiled_generate_replays_prefill_into_the_decode_caches(fake_graphs, arch, changes):
+    """``generate``'s compiled path with stand-in graphs: prefill captured
+    for the prompt shape writes into the caches of the decode graph for the
+    batch (the ring wraps), both read one ``cross`` buffer, and decode goes
+    on from there; tokens and every step's logits equal the eager engine's
+    exactly, and the engine holds one graph of each kind."""
+    cfg, model, tokens, cross = _decode_case(arch, changes)
+    prompts = tokens[:, :P].numpy()
+    runs = []
+    for compile in (True, False):
+        engine = serve.ServeEngine(cfg, model, P + STEPS, torch.device("cpu"), compile=compile)
+        runs.append(engine.generate(prompts, STEPS + 1, temperature=0.0, return_logits=True,
+                                    cross_embeds=None if cross is None else cross.numpy()))
+        if compile:
+            assert set(engine.graphs) == {("decode", B, _cross_key(cross)),
+                                          ("prefill", B, P, _cross_key(cross))}
+            decode = engine.graphs[("decode", B, _cross_key(cross))]
+            assert engine.graphs[("prefill", B, P, _cross_key(cross))].logits.shape == (
+                B, cfg.vocab)
+        else:
+            assert engine.graphs == {}
+    (got, got_logits), (want, want_logits) = runs
+    np.testing.assert_array_equal(got, want)
+    assert all(torch.equal(g, w) for g, w in zip(got_logits, want_logits, strict=True))
+    if cross is not None:
+        assert torch.equal(decode.cross, cross)
+
+
+def test_one_compiled_engine_serves_shapes_in_turn_like_fresh_engines(fake_graphs):
+    """One engine (stand-in graphs) alternating two prompt lengths and two
+    batch sizes gives, request by request, the tokens of a fresh eager
+    engine: a prefill graph for each (batch, prompt length), a decode graph
+    for each batch, nothing carried from one request to the next."""
+    cfg = f32(get_smoke_config("gemma2_27b"))
+    model = T.init_params(cfg, 1, "cpu")
+    rng = np.random.default_rng(9)
+    shapes = [(2, 10), (3, 5), (2, 5), (3, 10), (2, 10)]
+    engine = serve.ServeEngine(cfg, model, 16, torch.device("cpu"))
+    for shape in shapes:
+        prompts = rng.integers(0, cfg.vocab, shape).astype(np.int32)
+        fresh = serve.ServeEngine(cfg, model, 16, torch.device("cpu"), compile=False)
+        np.testing.assert_array_equal(engine.generate(prompts, 5, temperature=0.0),
+                                      fresh.generate(prompts, 5, temperature=0.0))
+    assert sorted(engine.graphs) == [("decode", 2, None), ("decode", 3, None),
+                                     ("prefill", 2, 5, None), ("prefill", 2, 10, None),
+                                     ("prefill", 3, 5, None), ("prefill", 3, 10, None)]
+
+
+# --------------------------------------------------------------- on a mesh
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_sharded_steps_read_nothing_back(fake_graphs, gloo_mesh, arch):
+    """On the one-rank gloo mesh, what the card captures, under the guard
+    (``fake_graphs``): the engine's prefill and decode steps (on static
+    DTensor tokens, caches and patch embeddings, each call's input copied
+    into this rank's shard, the logits gathered whole in the step; the ring
+    wraps) and the compiled train step (its eager first step, the capture
+    and a replay); the tokens equal the meshless eager engine's."""
+    cfg = f32(get_smoke_config(arch))
+    prompts, cross = inputs(cfg, B, P, seed=1)
+    engine = serve.ServeEngine.build(cfg, P + STEPS, device="cpu", mesh=gloo_mesh)
+    got = engine.generate(prompts, STEPS, temperature=0.0, cross_embeds=cross)
+    meshless = serve.ServeEngine.build(cfg, P + STEPS, device="cpu", compile=False)
+    np.testing.assert_array_equal(got, meshless.generate(prompts, STEPS, temperature=0.0,
+                                                         cross_embeds=cross))
+    decode = engine.graphs[("decode", B, _cross_key(None if cross is None
+                                                    else torch.from_numpy(cross)))]
+    assert isinstance(decode.tokens, DTensor)
+    assert all(isinstance(t, DTensor) for c in decode.caches for t in c.values())
+
+    run = train.build_run(cfg, "adamw", device="cpu", mesh=gloo_mesh)
+    step = graphs.GraphedTrainStep(steps.make_train_step(
+        cfg, steps.choose_optimizer(cfg, "adamw")[1]), gloo_mesh)
+    for i in range(2):
+        _, run.opt_state, metrics = step(run.params, run.opt_state, _train_batch(cfg, seed=i))
+        assert not isinstance(metrics["loss"], DTensor) and np.isfinite(float(metrics["loss"]))
+    assert all(isinstance(v, DTensor) for v in step.batch.values())
+
+
+@pytest.mark.parametrize("on_mesh", [False, True], ids=["meshless", "mesh"])
+def test_captured_train_step_refuses_other_tensors(fake_graphs, gloo_mesh, tmp_path, on_mesh):
+    """The compiled train step (stand-in capture) replays only on the
+    parameters and optimizer state it was captured on: parameters restored
+    by ``restore_onto_mesh`` and assigned in their place, or a parameter's
+    values moved to another tensor, are refused (``ValueError``), never
+    replayed on; values copied into them (``_restore``) are taken."""
+    from repro_torch.checkpoint import store
+    from repro_torch.runtime import elastic
+
+    cfg = get_smoke_config("stablelm_3b")
+    mesh = gloo_mesh if on_mesh else None
+    run = train.build_run(cfg, "adamw", device="cpu", mesh=mesh)
+    step = graphs.GraphedTrainStep(steps.make_train_step(
+        cfg, steps.choose_optimizer(cfg, "adamw")[1]), mesh)
+    batch = _train_batch(cfg)
+    step(run.params, run.opt_state, batch)
+    run.step = 1
+    store.save(train._state(run), str(tmp_path), 1)
+    train._restore(run, str(tmp_path), 1)
+    step(run.params, run.opt_state, batch)
+    if on_mesh:
+        state = elastic.restore_onto_mesh(str(tmp_path), 1, {"params": run.params.state_dict()},
+                                          mesh, cfg)
+        run.params.load_state_dict(state["params"], assign=True)
+    else:
+        p = next(run.params.parameters())
+        p.data = p.data.clone()
+    with pytest.raises(ValueError, match="captured on"):
+        step(run.params, run.opt_state, batch)
+
+
+def test_cpu_and_gloo_meshes_stay_eager(gloo_mesh):
+    """With no card nothing is captured, on a gloo mesh as without one: the
+    engine runs its steps eagerly and keeps no graph, and ``build_run``'s
+    step is the eager sharded step."""
+    cfg = get_smoke_config("stablelm_3b")
+    for mesh in (None, gloo_mesh):
+        engine = serve.ServeEngine.build(cfg, 16, device="cpu", mesh=mesh)
+        assert engine.compile and not engine.compiled
+        engine.generate(np.zeros((1, 4), np.int32), 2, temperature=0.0)
+        assert engine.graphs == {} and engine.pool is None
+        run = train.build_run(cfg, device="cpu", mesh=mesh)
+        assert not isinstance(run.step_fn, graphs.GraphedTrainStep)
+        assert run.step_fn.__name__ == ("step" if mesh else "train_step")

@@ -357,7 +357,7 @@ def test_graphed_decode_matches_eager(cuda, arch, changes):
         engine = ServeEngine(cfg, model, 17, cuda)
         out, got = engine.generate(prompts.numpy(), 6, temperature=0.0, return_logits=True,
                                    cross_embeds=None if cross is None else cross.numpy())
-    assert engine.compiled and len(engine.graphs) == 1
+    assert engine.compiled and sorted(k[0] for k in engine.graphs) == ["decode", "prefill"]
     assert np.array_equal(out[:, 12:], want_tok.numpy())
     assert len(got) == len(want) == 6
     for i, (g, w) in enumerate(zip(got, want)):
@@ -366,22 +366,69 @@ def test_graphed_decode_matches_eager(cuda, arch, changes):
 
 @pytest.mark.parametrize("arch", ["gemma2_27b", "mamba2_780m", "recurrentgemma_9b"])
 def test_one_engine_serves_requests_like_fresh_engines(cuda, arch):
-    """One engine serving requests of two batch sizes and prompt lengths,
-    then the first again, gives the tokens of a fresh engine for each: its
-    static caches and buffers carry nothing from one request to the next."""
+    """One engine alternating two prompt lengths and two batch sizes, then
+    the first shape again, gives the tokens of a fresh engine for each: a
+    prefill graph for each (batch, prompt length) and a decode graph for
+    each batch, sharing the engine's memory pool, carry nothing from one
+    request to the next (12 tokens pass gemma2's 8-slot window)."""
     from repro_torch.launch.serve import ServeEngine
 
     cfg = _f32_smoke(arch)
     rng = np.random.default_rng(9)
-    requests = [rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32),
-                rng.integers(0, cfg.vocab, (3, 5)).astype(np.int32)]
-    requests.append(requests[0])
+    shapes = [(2, 12), (3, 5), (2, 5), (3, 12), (2, 12)]
     engine = ServeEngine.build(cfg, 20, seed=1, device=cuda)
-    for prompts in requests:
+    for shape in shapes:
+        prompts = rng.integers(0, cfg.vocab, shape).astype(np.int32)
         fresh = ServeEngine.build(cfg, 20, seed=1, device=cuda)
         assert np.array_equal(engine.generate(prompts, 7, temperature=0.0),
                               fresh.generate(prompts, 7, temperature=0.0))
-    assert sorted(k[0] for k in engine.graphs) == [2, 3]
+    assert sorted(engine.graphs) == [("decode", 2, None), ("decode", 3, None),
+                                     ("prefill", 2, 5, None), ("prefill", 2, 12, None),
+                                     ("prefill", 3, 5, None), ("prefill", 3, 12, None)]
+
+
+@pytest.mark.parametrize("arch,changes", [pytest.param(a, {}, id=a) for a in GRAPH_ARCHS] + [
+    pytest.param("musicgen_large", {"opt_kv_quant": True}, id="musicgen_large-int8_kv")])
+def test_graphed_prefill_matches_eager(cuda, arch, changes):
+    """The engine's captured prefill, replayed into its decode graph's
+    reset caches, against the eager prefill step into fresh caches on the
+    same weights: logits and every cache entry within ``GRAPH_TOL`` of
+    their largest (ring positions and int8 codes equal), the greedy token
+    equal.  12 prompt tokens pass gemma2's 8-slot window: the ring wraps."""
+    from repro_torch.launch.serve import ServeEngine
+    from repro_torch.models import transformer as lm
+
+    from benchmarks.torch_fig6_cnn_infer import full_precision
+
+    cfg = _f32_smoke(arch, **changes)
+    model = lm.init_params(cfg, 0, cuda)
+    gen = torch.Generator().manual_seed(6)
+    prompts = torch.randint(0, cfg.vocab, (2, 12), generator=gen)
+    cross = (torch.randn((2, cfg.cross_kv_len, cfg.d_model), generator=gen)
+             if cfg.family == "vlm" else None)
+    with full_precision():
+        engine = ServeEngine(cfg, model, 16, cuda)
+        engine.generate(prompts.numpy(), 1, temperature=0.0,
+                        cross_embeds=None if cross is None else cross.numpy())
+        key = None if cross is None else (tuple(cross.shape), torch.float32)
+        decode = engine.graphs[("decode", 2, key)]
+        prefill = engine.graphs[("prefill", 2, 12, key)]
+        lm.reset_caches(decode.caches)
+        if cross is not None:
+            decode.set_cross(cross.to(cuda))
+        got = prefill(prompts.to(cuda)).clone()
+        want, want_caches = engine.prefill_fn(model, prompts.to(cuda),
+                                              lm.init_caches(cfg, 2, 16, cuda),
+                                              None if cross is None else cross.to(cuda))
+    assert _close(got, want), float((got - want).abs().max())
+    assert torch.equal(got.argmax(-1), want.argmax(-1))
+    for layer, (a, b) in enumerate(zip(decode.caches, want_caches, strict=True)):
+        assert set(a) == set(b)
+        for name in b:
+            assert (torch.equal(a[name], b[name]) if not b[name].is_floating_point()
+                    else _close(a[name], b[name])), (layer, name)
+    if "local" in cfg.layer_kinds():
+        assert decode.caches[cfg.layer_kinds().index("local")]["k"].shape[1] < 12
 
 
 def test_generate_returns_distinct_logits_each_step(cuda):
@@ -467,8 +514,9 @@ def test_graphed_train_restore_continues_as_uninterrupted(cuda, tmp_path):
 
 
 def test_replays_read_nothing_back(cuda):
-    """``torch.cuda.set_sync_debug_mode("error")`` around a decode replay
-    and a train-step replay: neither synchronises with the host."""
+    """``torch.cuda.set_sync_debug_mode("error")`` around a prefill
+    replay, a decode replay and a train-step replay: none synchronises with
+    the host."""
     from repro_torch.data.pipeline import DataConfig, SyntheticStream
     from repro_torch.launch import graphs, train
     from repro_torch.launch.serve import ServeEngine
@@ -477,7 +525,9 @@ def test_replays_read_nothing_back(cuda):
     engine = ServeEngine.build(cfg, 16, device=cuda)
     prompts = np.random.default_rng(4).integers(0, cfg.vocab, (2, 8)).astype(np.int32)
     engine.generate(prompts, 3, temperature=0.0)
-    decode = engine.graphs[(2, None)]
+    decode = engine.graphs[("decode", 2, None)]
+    prefill = engine.graphs[("prefill", 2, 8, None)]
+    tokens = torch.from_numpy(prompts).long().to(cuda)
     tok = torch.zeros((2, 1), dtype=torch.int64, device=cuda)
     moe = _f32_smoke("deepseek_moe_16b")
     run = train.build_run(moe, "adamw", device=cuda)
@@ -488,6 +538,7 @@ def test_replays_read_nothing_back(cuda):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
+        prefill(tokens)
         decode(tok, 9)
         run.step_fn(run.params, run.opt_state, batches[1])
     finally:
@@ -515,3 +566,155 @@ def test_bf16_attention_products_run_on_the_tensor_cores(cuda):
     ga = (g.double() @ b.detach().double().transpose(1, 2)).to(torch.bfloat16)
     gb = (a.detach().double().transpose(1, 2) @ g.double()).to(torch.bfloat16)
     assert _close(a.grad, ga, 1e-2) and _close(b.grad, gb, 1e-2)
+
+
+# ------------------------------------------- the compiled step on a card mesh
+#
+# A mesh of one NCCL rank on the card: the serving engine and the train step
+# are captured on it too, on static DTensor inputs.  Held to the meshless
+# graphs (tokens) and to the eager steps on the same mesh (float32 losses and
+# parameters within GRAPH_TOL).
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A 1×1 mesh on an NCCL group of one rank, shared by this module's
+    mesh tests and taken down after them (a process has one default
+    group)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    yield make_host_mesh(device="cuda")
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch", GRAPH_ARCHS)
+def test_graphed_mesh_engine_gives_meshless_tokens(nccl_mesh, arch):
+    """``ServeEngine.build(..., mesh=mesh)`` on the card captures prefill and
+    decode on static DTensor inputs; its greedy tokens equal the meshless
+    engine's and the eager mesh engine's, for a batch of two prompts and of
+    one."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.serve import ServeEngine
+
+    from benchmarks.torch_fig6_cnn_infer import full_precision
+
+    cfg = _f32_smoke(arch)
+    rng = np.random.default_rng(3)
+    with full_precision():
+        for batch in (2, 1):
+            prompts = rng.integers(0, cfg.vocab, (batch, 12)).astype(np.int32)
+            cross = (rng.standard_normal((batch, cfg.cross_kv_len, cfg.d_model)).astype(
+                np.float32) if cfg.family == "vlm" else None)
+            outs = []
+            for mesh, compile in ((None, True), (nccl_mesh, True), (nccl_mesh, False)):
+                engine = ServeEngine.build(cfg, 17, seed=0, device="cuda", mesh=mesh,
+                                           compile=compile)
+                outs.append(engine.generate(prompts, 5, temperature=0.0, cross_embeds=cross))
+                assert engine.compiled == compile
+                if mesh is not None and compile:
+                    key = None if cross is None else (cross.shape, torch.float32)
+                    assert isinstance(engine.graphs[("decode", batch, key)].tokens, DTensor)
+                    assert ("prefill", batch, 12, key) in engine.graphs
+            assert np.array_equal(outs[1], outs[0]) and np.array_equal(outs[2], outs[0])
+
+
+@pytest.mark.parametrize("arch", ["stablelm_3b", "deepseek_moe_16b", "mamba2_780m"])
+def test_graphed_mesh_train_steps_match_eager(nccl_mesh, arch):
+    """Three steps of ``build_run(..., mesh=mesh)``'s compiled step (the
+    first eager, then replays on static DTensor batches) against three
+    eager steps on the same mesh (``compile=False``) from the same weights:
+    losses within 1e-6 relative, every parameter within 1e-6 of its
+    largest."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.launch import graphs, train
+
+    from benchmarks.torch_fig6_cnn_infer import full_precision
+
+    cfg = _f32_smoke(arch)
+    stream = SyntheticStream(DataConfig(cfg.vocab, 16, 2, seed=4))
+    runs = []
+    with full_precision():
+        for compile in (True, False):
+            run = train.build_run(cfg, "adamw", seed=0, device="cuda", mesh=nccl_mesh,
+                                  compile=compile)
+            assert isinstance(run.step_fn, graphs.GraphedTrainStep) == compile
+            losses = []
+            for i in range(3):
+                batch = {k: v.cuda() for k, v in stream.next_batch(i).items()}
+                _, run.opt_state, metrics = run.step_fn(run.params, run.opt_state, batch)
+                losses.append(float(metrics["loss"]))
+            runs.append((run, losses))
+    (got, got_losses), (want, want_losses) = runs
+    assert got.step_fn.graph is not None and int(got.opt_state["step"]) == 3
+    for a, b in zip(got_losses, want_losses):
+        assert abs(a - b) <= GRAPH_TOL * abs(b), (got_losses, want_losses)
+    ref = {k: v.full_tensor() for k, v in want.params.state_dict().items()}
+    for k, v in got.params.state_dict().items():
+        assert _close(v.full_tensor(), ref[k]), k
+
+
+def test_graphed_mesh_train_restore_continues_as_uninterrupted(nccl_mesh, tmp_path):
+    """``train_loop`` on the compiled mesh step with a fault at step 7
+    restores step 6 by copying into the DTensors the graph holds, and ends
+    where an uninterrupted compiled mesh run ends."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.launch import train
+    from repro_torch.runtime.fault_tolerance import FTConfig, FaultInjector
+
+    from benchmarks.torch_fig6_cnn_infer import full_precision
+
+    cfg = _f32_smoke("llama3_2_3b")
+    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2))
+    runs = []
+    with full_precision():
+        for d, injector in ((tmp_path / "a", FaultInjector({7})), (tmp_path / "b", None)):
+            run = train.build_run(cfg, "adamw", seed=0, device="cuda", mesh=nccl_mesh)
+            run, hist = train.train_loop(run, stream, 10, ckpt_dir=str(d), injector=injector,
+                                         ft=FTConfig(checkpoint_every=3, max_restarts=1),
+                                         log_every=1000)
+            runs.append((run, [h["loss"] for h in hist]))
+    (faulted, losses_f), (clean, losses_c) = runs
+    assert len(losses_f) == 11 and len(losses_c) == 10
+    assert abs(losses_f[-1] - losses_c[-1]) <= GRAPH_TOL * abs(losses_c[-1])
+    want = {k: v.full_tensor() for k, v in clean.params.state_dict().items()}
+    for k, v in faulted.params.state_dict().items():
+        assert _close(v.full_tensor(), want[k]), k
+
+
+def test_mesh_replays_read_nothing_back(nccl_mesh):
+    """``torch.cuda.set_sync_debug_mode("error")`` around the mesh
+    engine's prefill and decode replays and a mesh train-step replay: none
+    synchronises with the host."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticStream
+    from repro_torch.launch import train
+    from repro_torch.launch.serve import ServeEngine
+
+    cfg = _f32_smoke("gemma2_27b")
+    engine = ServeEngine.build(cfg, 16, device="cuda", mesh=nccl_mesh)
+    prompts = np.random.default_rng(4).integers(0, cfg.vocab, (2, 10)).astype(np.int32)
+    engine.generate(prompts, 3, temperature=0.0)
+    prefill = engine.graphs[("prefill", 2, 10, None)]
+    decode = engine.graphs[("decode", 2, None)]
+    tokens = torch.from_numpy(prompts).long().cuda()
+    tok = torch.zeros((2, 1), dtype=torch.int64, device="cuda")
+    run = train.build_run(_f32_smoke("mamba2_780m"), "adamw", device="cuda", mesh=nccl_mesh)
+    stream = SyntheticStream(DataConfig(run.cfg.vocab, 16, 2))
+    batches = [{k: v.cuda() for k, v in stream.next_batch(i).items()} for i in range(2)]
+    run.step_fn(run.params, run.opt_state, batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        prefill(tokens)
+        decode(tok, 11)
+        run.step_fn(run.params, run.opt_state, batches[1])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()

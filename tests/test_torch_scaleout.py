@@ -7,7 +7,7 @@ bounds card against CPU); a checkpoint saved from the 2×2 mesh restored by
 ``restore_onto_mesh`` onto 1×1 and 1×4, equal leaf by leaf (exactly);
 ``plan_rescale`` field-equal to the reference's; and ``make_host_mesh``
 with no card raising ``RuntimeError``, and ``ValueError`` for a mesh that
-does not hold every rank."""
+does not hold every rank; a batch of one prompt served on the mesh."""
 
 import dataclasses
 import json
@@ -118,6 +118,18 @@ def test_serve_generates_batch_on_a_mesh(host_mesh):
     assert (engine.generate(prompts, 8, temperature=0.0) == out).all()
     plain = ServeEngine.build(cfg, max_seq=24, device="cpu")
     assert (plain.generate(prompts, 8, temperature=0.0) == out).all()
+
+
+@pytest.mark.parametrize("arch", ["gemma2_27b", "mamba2_780m", "recurrentgemma_9b"])
+def test_serve_one_prompt_on_a_mesh(host_mesh, arch):
+    """A batch of one prompt on the mesh gives the meshless engine's tokens:
+    its batch dim of one element is placed replicated (DTensor refuses to
+    fold a sharded dim of size 1 away in ``[1, T, d] @ [d, n]``)."""
+    cfg = get_smoke_config(arch)
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab, (1, 9)).astype(np.int32)
+    outs = [ServeEngine.build(cfg, max_seq=16, device="cpu", mesh=m).generate(
+        prompts, 6, temperature=0.0) for m in (host_mesh, None)]
+    np.testing.assert_array_equal(outs[0], outs[1])
 
 
 def test_plan_rescale_equals_reference():
