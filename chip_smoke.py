@@ -1509,6 +1509,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    started = time.perf_counter()
     # Full float32 in every matrix product: the kernel checks compare with
     # plain and library products, which must not round through TF32.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1698,6 +1699,7 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": r["library_ms"], "case": r["label"],
             **kernel_resources(mm_lib, pim_matmul.kernel_symbol(variant)),
         })
+    say(f"chip_smoke: {time.perf_counter() - started:.1f} s wall from the first check to here")
     say(smi)
     say(json.dumps({"kernels": line}))
     say(json.dumps({"ok": True, "device": {

@@ -53,11 +53,6 @@ def _storage(t: torch.Tensor) -> int:
     return (t.to_local() if isinstance(t, DTensor) else t).data_ptr()
 
 
-def new_pool():
-    """A memory pool for graphs that may share one."""
-    return torch.cuda.graph_pool_handle()
-
-
 def _warm(step):
     """``step()`` once on a side stream, so that lazy initialisation
     (cuBLAS's workspaces among it) happens outside the capture; returns

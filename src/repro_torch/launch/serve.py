@@ -30,7 +30,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.launch import steps as steps_mod
-from repro_torch.launch.graphs import GraphedDecode, GraphedPrefill, new_pool
+from repro_torch.launch.graphs import GraphedDecode, GraphedPrefill
 from repro_torch.launch.mesh import check_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.spmd import full, on_mesh
@@ -131,7 +131,7 @@ class ServeEngine:
         before the next replay."""
         key = None if cross is None else (tuple(cross.shape), cross.dtype)
         if self.pool is None:
-            self.pool = new_pool()
+            self.pool = torch.cuda.graph_pool_handle()
         if ("decode", batch, key) not in self.graphs:
             self.graphs[("decode", batch, key)] = GraphedDecode(
                 self.decode_fn, self.params, self.cfg, batch, self.max_seq, self.device,

@@ -351,7 +351,7 @@ def fake_graphs(monkeypatch):
 
     monkeypatch.setattr(graphs, "_warm", _guarded)
     monkeypatch.setattr(graphs, "_capture", capture)
-    monkeypatch.setattr(serve, "new_pool", object)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", object)
     monkeypatch.setattr(serve.ServeEngine, "compiled", property(lambda self: self.compile))
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: type("Stream", (), {"synchronize": lambda self: None})())
