@@ -19,7 +19,7 @@ captured once for each shape: decode for each batch size, prefill for each
 (batch size, prompt length).  On a ``DeviceMesh`` of the card the static
 inputs are DTensors, placed once as ``parallel.sharding`` places the step's
 inputs, and each call copies this rank's shard of its input into them; the
-step runs under ``on_mesh`` and gathers its outputs whole inside the graph.
+step gathers its outputs whole inside the graph.
 
 Capture happens on the card only; a capture that fails raises, and nothing
 falls back to the eager step.  On the CPU (and a gloo mesh) the steps run
@@ -35,7 +35,6 @@ from torch.distributed.tensor import DTensor
 from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
 
 from repro_torch.models import transformer as tfm
-from repro_torch.models.spmd import full, on_mesh
 from repro_torch.parallel import sharding
 
 
@@ -99,18 +98,19 @@ def _copy_in(static: torch.Tensor, value: torch.Tensor) -> None:
 
 
 class GraphedDecode:
-    """``decode_fn(params, tokens, position, caches, cross_embeds)``
-    captured for one batch: static tokens [B, 1] (int64), a 0-d int32
-    position and ``caches`` of ``max_seq`` positions, all on the card and
-    owned here, and, for a model that attends to image patches, static
-    ``cross`` embeddings of ``cross_shape``.  On a ``mesh`` the tokens,
-    caches and embeddings are DTensors placed by ``batch_specs`` and
-    ``cache_specs``, and the logits are gathered whole in the graph.  The
-    caller fills the caches (reset, then prefill: :class:`GraphedPrefill`
-    writes into these), then calls it once a token."""
+    """``decode(tokens, position, caches, cross)`` → logits [B, V] (the
+    engine's decode step: on a mesh it runs under ``on_mesh`` and gathers
+    the logits whole) captured for one batch: static tokens [B, 1]
+    (int64), a 0-d int32 position and ``caches`` of ``max_seq`` positions,
+    all on the card and owned here, and, for a model that attends to image
+    patches, static ``cross`` embeddings of ``cross_shape``.  On a ``mesh``
+    the tokens, caches and embeddings are DTensors placed by
+    ``batch_specs`` and ``cache_specs``.  The caller fills the caches
+    (reset, then prefill: :class:`GraphedPrefill` writes into these), then
+    calls it once a token."""
 
-    def __init__(self, decode_fn, params, cfg, batch: int, max_seq: int, device,
-                 cross_shape=None, cross_dtype=None, *, mesh=None, pool=None):
+    def __init__(self, decode, cfg, batch: int, max_seq: int, device, cross_shape=None,
+                 cross_dtype=None, *, mesh=None, pool=None):
         self.mesh = mesh
         self.tokens = _static(torch.zeros((batch, 1), dtype=torch.int64, device=device), mesh)
         self.position = torch.zeros((), dtype=torch.int32, device=device)
@@ -120,12 +120,7 @@ class GraphedDecode:
                 self.caches, sharding.cache_specs(self.caches, cfg, mesh=mesh), mesh)
         self.cross = None if cross_shape is None else _static(
             torch.zeros(cross_shape, dtype=cross_dtype, device=device), mesh)
-
-        def step():
-            with on_mesh(mesh):
-                return full(decode_fn(params, self.tokens, self.position, self.caches,
-                                      self.cross)[0])
-
+        step = lambda: decode(self.tokens, self.position, self.caches, self.cross)  # noqa: E731
         t0 = time.perf_counter()
         _warm(step)
         self.graph, self.logits = _capture(step, pool)
@@ -145,23 +140,18 @@ class GraphedDecode:
 
 
 class GraphedPrefill:
-    """``prefill_fn(params, tokens, caches, cross_embeds)`` captured for one
-    prompt shape [B, P] on static tokens (int64; on a mesh placed by
-    ``batch_specs``), writing into the caches of ``decode``, the
-    :class:`GraphedDecode` of batch B, and reading its ``cross`` buffer:
-    decode then goes on from what the replayed prefill wrote.  The caller
-    resets those caches first."""
+    """``prefill(tokens, caches, cross)`` → last-position logits [B, V]
+    (the engine's prefill step) captured for one prompt shape [B, P] on
+    static tokens (int64; on a mesh placed by ``batch_specs``), writing
+    into the caches of ``decode``, the :class:`GraphedDecode` of batch B,
+    and reading its ``cross`` buffer: decode then goes on from what the
+    replayed prefill wrote.  The caller resets those caches first."""
 
-    def __init__(self, prefill_fn, params, decode: GraphedDecode, prompt_len: int, *,
-                 pool=None):
+    def __init__(self, prefill, decode: GraphedDecode, prompt_len: int, *, pool=None):
         batch = decode.tokens.shape[0]
         self.tokens = _static(torch.zeros((batch, prompt_len), dtype=torch.int64,
                                           device=decode.position.device), decode.mesh)
-
-        def step():
-            with on_mesh(decode.mesh):
-                return full(prefill_fn(params, self.tokens, decode.caches, decode.cross)[0])
-
+        step = lambda: prefill(self.tokens, decode.caches, decode.cross)  # noqa: E731
         t0 = time.perf_counter()
         _warm(step)
         self.graph, self.logits = _capture(step, pool)
@@ -181,22 +171,17 @@ class GraphedTrainStep:
     eagerly on a side stream (a real step, counted as one), frees the
     cached blocks it left, and captures the whole step (forward, backward,
     clipping, the update) on that call's ``params`` and ``opt_state`` and on
-    static copies of its batch (on a ``mesh``, placed by ``batch_specs``;
-    ``step_fn`` then runs under ``on_mesh`` and its metrics are gathered
-    whole in the graph); every later call copies its batch into them and
-    replays.  The captured step updates those very tensors, so a call must
-    pass them (a restore copies into them); the returned metrics are
-    copies."""
+    static copies of its batch (on a ``mesh``, placed by ``batch_specs``,
+    and ``step_fn`` the sharded step, which takes them as placed and
+    gathers its metrics whole in the graph); every later call copies its
+    batch into them and replays.  The captured step updates those very
+    tensors, so a call must pass them (a restore copies into them); the
+    returned metrics are copies."""
 
     def __init__(self, step_fn, mesh=None):
         self.step_fn = step_fn
         self.mesh = mesh
         self.graph = None
-
-    def _step(self, params, opt_state, batch):
-        with on_mesh(self.mesh):
-            params, opt_state, metrics = self.step_fn(params, opt_state, batch)
-        return params, opt_state, {k: full(v) for k, v in metrics.items()}
 
     def __call__(self, params, opt_state, batch: dict):
         if self.graph is None:
@@ -220,7 +205,7 @@ class GraphedTrainStep:
 
     def _first(self, params, opt_state, batch):
         self.batch = {k: _static(v, self.mesh) for k, v in batch.items()}
-        params, opt_state, metrics = _warm(lambda: self._step(params, opt_state, self.batch))
+        params, opt_state, metrics = _warm(lambda: self.step_fn(params, opt_state, self.batch))
         # The eager step's transient blocks go back to the driver before the
         # graph's private pool takes its own: both at once could pass the
         # card's memory.
@@ -230,7 +215,7 @@ class GraphedTrainStep:
         self.tensors = [(t, _storage(t)) for t in (*params.parameters(), *_leaves(opt_state))]
         t0 = time.perf_counter()
         graph, (_, _, self.metrics) = _capture(
-            lambda: self._step(params, opt_state, self.batch))
+            lambda: self.step_fn(params, opt_state, self.batch))
         self.capture_s = time.perf_counter() - t0
         self.graph = graph
         return params, opt_state, metrics

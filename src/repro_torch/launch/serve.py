@@ -134,13 +134,13 @@ class ServeEngine:
             self.pool = torch.cuda.graph_pool_handle()
         if ("decode", batch, key) not in self.graphs:
             self.graphs[("decode", batch, key)] = GraphedDecode(
-                self.decode_fn, self.params, self.cfg, batch, self.max_seq, self.device,
+                self._decode, self.cfg, batch, self.max_seq, self.device,
                 *(() if cross is None else (cross.shape, cross.dtype)), mesh=self.mesh,
                 pool=self.pool)
         decode = self.graphs[("decode", batch, key)]
         if ("prefill", batch, prompt_len, key) not in self.graphs:
             self.graphs[("prefill", batch, prompt_len, key)] = GraphedPrefill(
-                self.prefill_fn, self.params, decode, prompt_len, pool=self.pool)
+                self._prefill, decode, prompt_len, pool=self.pool)
         prefill = self.graphs[("prefill", batch, prompt_len, key)]
         tfm.reset_caches(decode.caches)
         if cross is not None:
@@ -156,17 +156,19 @@ class ServeEngine:
                 caches, sharding.cache_specs(caches, self.cfg, mesh=self.mesh), self.mesh)
             if cross is not None:
                 cross = self._batch(cross)
+        return (lambda tokens: self._prefill(self._batch(tokens), caches, cross),
+                lambda tokens, position: self._decode(self._batch(tokens), position, caches,
+                                                      cross))
 
-        def prefill(tokens):
-            with on_mesh(self.mesh):
-                return full(self.prefill_fn(self.params, self._batch(tokens), caches, cross)[0])
+    def _prefill(self, tokens, caches, cross):
+        """The prefill step on placed inputs → last-position logits, whole."""
+        with on_mesh(self.mesh):
+            return full(self.prefill_fn(self.params, tokens, caches, cross)[0])
 
-        def decode(tokens, position):
-            with on_mesh(self.mesh):
-                return full(self.decode_fn(self.params, self._batch(tokens), position, caches,
-                                           cross)[0])
-
-        return prefill, decode
+    def _decode(self, tokens, position, caches, cross):
+        """The decode step on placed inputs → logits, whole."""
+        with on_mesh(self.mesh):
+            return full(self.decode_fn(self.params, tokens, position, caches, cross)[0])
 
     def _batch(self, t: torch.Tensor) -> torch.Tensor:
         """An input as the steps take it: placed by ``batch_specs`` on a

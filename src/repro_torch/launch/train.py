@@ -21,6 +21,7 @@ import dataclasses
 import time
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.checkpoint import store
 from repro_torch.configs import get_config, get_smoke_config
@@ -80,19 +81,21 @@ def build_run(cfg, optimizer_name="adamw", seed=0, device=None, mesh=None,
         specs = sharding.param_specs(opt_state, cfg, fsdp=fsdp, mesh=mesh)
         opt_state = {k: v if k == "step" else sharding.place_tree(v, specs[k], mesh)
                      for k, v in opt_state.items()}
+        step_fn = _sharded_step(step_fn, mesh)
     if device.type == "cuda" and compile:
         step_fn = GraphedTrainStep(step_fn, mesh)
-    elif mesh is not None:
-        step_fn = _sharded_step(step_fn, mesh)
     return TrainRun(cfg=cfg, step_fn=step_fn, params=params, opt_state=opt_state, step=0,
                     mesh=mesh)
 
 
 def _sharded_step(step_fn, mesh):
-    """``step_fn`` run eagerly on ``mesh``: the batch placed by
-    ``batch_specs``, the metrics gathered whole."""
+    """``step_fn`` on ``mesh``: the batch placed by ``batch_specs`` (a
+    compiled step's static batch is placed already), the metrics gathered
+    whole."""
     def step(params, opt_state, batch):
-        batch = sharding.place_tree(batch, sharding.batch_specs(batch, mesh=mesh), mesh)
+        specs = sharding.batch_specs(batch, mesh=mesh)
+        batch = {k: v if isinstance(v, DTensor) else sharding.place(v, mesh, specs[k])
+                 for k, v in batch.items()}
         with on_mesh(mesh):
             params, opt_state, metrics = step_fn(params, opt_state, batch)
         return params, opt_state, {k: full(v) for k, v in metrics.items()}

@@ -433,8 +433,7 @@ def test_sharded_steps_read_nothing_back(fake_graphs, gloo_mesh, arch):
     assert all(isinstance(t, DTensor) for c in decode.caches for t in c.values())
 
     run = train.build_run(cfg, "adamw", device="cpu", mesh=gloo_mesh)
-    step = graphs.GraphedTrainStep(steps.make_train_step(
-        cfg, steps.choose_optimizer(cfg, "adamw")[1]), gloo_mesh)
+    step = graphs.GraphedTrainStep(run.step_fn, gloo_mesh)  # the card's compiled mesh step
     for i in range(2):
         _, run.opt_state, metrics = step(run.params, run.opt_state, _train_batch(cfg, seed=i))
         assert not isinstance(metrics["loss"], DTensor) and np.isfinite(float(metrics["loss"]))
@@ -454,8 +453,7 @@ def test_captured_train_step_refuses_other_tensors(fake_graphs, gloo_mesh, tmp_p
     cfg = get_smoke_config("stablelm_3b")
     mesh = gloo_mesh if on_mesh else None
     run = train.build_run(cfg, "adamw", device="cpu", mesh=mesh)
-    step = graphs.GraphedTrainStep(steps.make_train_step(
-        cfg, steps.choose_optimizer(cfg, "adamw")[1]), mesh)
+    step = graphs.GraphedTrainStep(run.step_fn, mesh)  # the card's compiled step
     batch = _train_batch(cfg)
     step(run.params, run.opt_state, batch)
     run.step = 1
