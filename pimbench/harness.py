@@ -218,6 +218,8 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
     peak_bytes = torch.cuda.max_memory_allocated(dev) if cuda else None
     made = len(spans) + len(failures)
     window_s = (spans[-1][3] / 1e9 - window_start) if spans else time.perf_counter() - window_start
+    _log(f"set-up {setup_s:.6f} s (peak {setup_peak} bytes); window {len(spans)} calls in "
+         f"{window_s:.6f} s")
     calls = [CallRecord(r, (e - s) / 1e9, (ret - s) / 1e9) for r, s, ret, e in spans]
 
     traced = None
@@ -233,6 +235,10 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
         if t_spans:
             traced = tracing.read_profile(
                 prof, [tracing.CallSpan(*x) for x in t_spans], recorded)
+            _log(f"traced {len(t_spans)} calls in {traced.window_s:.6f} s "
+                 f"({traced.window_s / len(t_spans) * 1e3:.4f} ms a call, untraced "
+                 f"{window_s / max(len(spans), 1) * 1e3:.4f}); profiler clock less the "
+                 f"harness's {traced.offset_ns} ns")
 
     wrong, checked, rows_checked = check(session, keep)
     run = Run(cell=cell, calls=calls, window_s=window_s, setup_s=setup_s, peak_bytes=peak_bytes,

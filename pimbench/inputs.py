@@ -52,10 +52,13 @@ def make_pool(dtype: str, n_args: int, sets: int, rows: int, stride: int, seed: 
                    else torch.int32)
         half = 1 << (t.nbits - 1)
         return torch.randint(-half, half, shape, generator=g, device=device, dtype=carrier)
-    mantissa = torch.randn(shape, generator=g, device=device, dtype=torch.float32)
-    exponents = torch.randint(-140, 120, shape, generator=g, device=device, dtype=torch.int32)
-    pool = mantissa * _powers_of_two(exponents)
-    del mantissa, exponents
+    pool = torch.empty(shape, device=device, dtype=torch.float32)
+    for s in range(sets):  # a set at a time, to keep set-up's peak near the pool's size
+        mantissa = torch.randn(shape[1:], generator=g, device=device, dtype=torch.float32)
+        exponents = torch.randint(-140, 120, shape[1:], generator=g, device=device,
+                                  dtype=torch.int32)
+        torch.mul(mantissa, _powers_of_two(exponents), out=pool[s])
+        del mantissa, exponents
     for k in range(n_args):
         where = torch.as_tensor(special_rows(k, rows, stride), device=device)
         keep = where < rows

@@ -12,11 +12,13 @@ the host was doing meanwhile.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import dataclasses
 import functools
 import importlib
 import re
+import statistics
 import time
 
 # (module, class, method, span name): the port's layers a call enters.
@@ -30,6 +32,8 @@ LAYER_SPANS = (
 # Host calls that put work on the device: launches, graph launches, copies, sets.
 LAUNCH_CALL = re.compile(r"^cu(da)?(LaunchKernel|GraphLaunch|Memcpy|Memset)")
 EXECUTOR_KERNEL = re.compile(r"bitserial")
+# The host call each of the harness's synchronises makes.
+SYNC_CALL = "cudaDeviceSynchronize"
 
 
 @dataclasses.dataclass
@@ -48,6 +52,7 @@ class Trace:
     device: list[tuple[str, int, int]]  # (name, start, end)
     launches: int  # host calls that launch device work
     spans: list[tuple[str, int, int]]  # the port's layers, host side
+    offset_ns: int = 0  # the profiler's clock less the harness's
 
     @property
     def start(self) -> int:
@@ -191,18 +196,36 @@ def _ns(event, which: str) -> int:
     return int(getattr(event, f"{which}_us")() * 1000)
 
 
+def clock_offset(call_ends: list[int], sync_ends: list[int]) -> int:
+    """The profiler's clock less the harness's: the median, over the calls,
+    of the gap from a call's end to the end of its device synchronise (each
+    call ends in one), matched in order, or else the nearest; 0 without."""
+    if not sync_ends:
+        return 0
+    sync_ends = sorted(sync_ends)
+    if len(sync_ends) == len(call_ends):
+        return int(statistics.median(s - e for s, e in zip(sync_ends, call_ends)))
+    diffs = []
+    for end in call_ends:
+        k = bisect.bisect_left(sync_ends, end)
+        near = [sync_ends[j] for j in (k - 1, k) if 0 <= j < len(sync_ends)]
+        diffs.append(min(near, key=lambda t: abs(t - end)) - end)
+    return int(statistics.median(diffs))
+
+
 def read_profile(prof, calls: list[CallSpan], spans: Spans) -> Trace:
     """The device events and launch calls of a finished ``torch.profiler``
-    run, on the harness's timeline."""
+    run, moved onto the harness's timeline by :func:`clock_offset`."""
     from torch.autograd import DeviceType
 
-    device, launches = [], 0
-    lo, hi = calls[0].start, calls[-1].end
+    device, host = [], []
     for e in prof.profiler.kineto_results.events():
         start = _ns(e, "start")
-        end = start + _ns(e, "duration")
-        if e.device_type() == DeviceType.CUDA:
-            device.append((e.name(), start, end))
-        elif LAUNCH_CALL.match(e.name()) and lo <= start <= hi:
-            launches += 1
-    return Trace(calls=calls, device=device, launches=launches, spans=list(spans.items))
+        item = (e.name(), start, start + _ns(e, "duration"))
+        (device if e.device_type() == DeviceType.CUDA else host).append(item)
+    offset = clock_offset([c.end for c in calls],
+                          [end for name, _, end in host if name == SYNC_CALL])
+    lo, hi = calls[0].start + offset, calls[-1].end + offset
+    launches = sum(1 for name, start, _ in host if LAUNCH_CALL.match(name) and lo <= start <= hi)
+    return Trace(calls=calls, device=[(n, s - offset, e - offset) for n, s, e in device],
+                 launches=launches, spans=list(spans.items), offset_ns=offset)

@@ -3,7 +3,7 @@ frozen table of ``[rows, weight]`` pairs.
 
 The order is a smooth weighted round robin over the table (each step picks
 the entry furthest behind its share), so every stretch of calls holds each
-size in its share to within one call; the seed picks where in that period
+size in its share to within two calls; the seed picks where in that period
 the run starts.  Every seed thus sends the same mix of work in a window,
 and a run's spread is the system's, not the draw's.  Call ``i`` takes the
 first rows of pool set ``i % pool_sets``.
