@@ -26,8 +26,6 @@ from . import inputs, reference, spec, tracing
 from .roofline import peak_for
 from .traffic import Calls
 
-GIB = 1 << 30
-
 
 @dataclasses.dataclass
 class CallRecord:

@@ -1,0 +1,7 @@
+"""``sim_mfu`` in the cells of MAC waves, where the host sets the pace; read as
+``sim_mfu`` is, under a name of its own so that these cells keep bounds and
+metrics apart from the bulk cells'."""
+
+from pimbench import spec
+
+read = spec.reader("sim_mfu").read

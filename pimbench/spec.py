@@ -57,14 +57,18 @@ def load_cell(name: str, root: Path = ROOT) -> Cell:
     w = cells[name]
     config_file = {c["name"]: c["file"] for c in bench["configs"]}[w["config"]]
     traffic = load_json(PKG / "traffic" / f"{w['traffic']}.json")
+    end_to_end = tuple(m for m in bench["end_to_end"] if _applies(m, name))
     return Cell(
         name=name,
         chips=w["chips"],
         config=load_json(root / config_file),
         traffic=traffic,
         program=load_json(PKG / "programs" / f"{traffic['program']}.json"),
-        end_to_end=tuple(m for m in bench["end_to_end"] if _applies(m, name)),
-        per_layer=tuple(m for m in bench["per_layer"] if _applies(m, name)),
+        end_to_end=end_to_end,
+        # Without a list of its own, a per-layer metric is read in every cell
+        # that reports the end-to-end metric it moves.
+        per_layer=tuple(m for m in bench["per_layer"] if _applies(m, name)
+                        and m["moves"] in {e["name"] for e in end_to_end}),
     )
 
 

@@ -54,13 +54,31 @@ def test_end_to_end_bounds():
     for m in BENCH["end_to_end"]:
         assert m["source"] in ("host_clock", "device_trace")
         assert 0.01 <= m["bound"] <= 0.25
+    for cell in CELLS:  # set-up, another end-to-end metric and a per-layer one
+        reported = [m["name"] for m in BENCH["end_to_end"] if cell in _cells(m)]
+        assert "setup_s" in reported and len(reported) >= 2
+        assert any(cell in _cells(m) for m in BENCH["per_layer"])
+
+
+def _cells(metric: dict) -> set[str]:
+    """The cells that report ``metric``: its own list, else (per-layer) the
+    cells that report what it moves, else every cell."""
+    if "workloads" in metric:
+        return set(metric["workloads"])
+    if "moves" in metric:
+        return _cells(next(m for m in BENCH["end_to_end"] if m["name"] == metric["moves"]))
+    return set(CELLS)
 
 
 def test_per_layer_entries():
-    e2e = {m["name"] for m in BENCH["end_to_end"]}
+    e2e = {m["name"]: m for m in BENCH["end_to_end"]}
     for m in BENCH["per_layer"]:
         assert m["moves"] in e2e and _line(m["layer"])
-        assert set(m.get("workloads", CELLS)) <= set(CELLS)
+        # A per-layer metric is read only in cells that report what it moves.
+        assert _cells(m) <= _cells(e2e[m["moves"]]) <= set(CELLS)
+    layers = {m["name"].removeprefix("waves."): m["layer"] for m in BENCH["per_layer"]}
+    assert all(m["layer"] == layers[m["name"].removeprefix("waves.")]
+               for m in BENCH["per_layer"])
     # Rooflines and shares of a peak are named as the contract asks.
     assert {m["name"] for m in BENCH["per_layer"] if m["unit"] == "%"} >= {
         "bitserial_loop_roofline", "bitserial_unrolled_roofline", "sim_mfu"}
@@ -86,6 +104,8 @@ def test_cells_and_configs():
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_files_load(cell):
+    assert {m["name"] for m in spec.load_cell(cell).per_layer} == {
+        m["name"] for m in BENCH["per_layer"] if cell in _cells(m)}
     c = spec.load_cell(cell)
     assert c.traffic["program"] == c.program["name"]
     assert c.basis in c.program["work"]
