@@ -6,6 +6,7 @@ cell's own size."""
 from __future__ import annotations
 
 import ast
+import os
 import shutil
 import subprocess
 import sys
@@ -89,6 +90,8 @@ def test_planted_faults_are_caught(monkeypatch, cell, fault):
 
 def test_command_refuses_without_a_card(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(os, "environ", dict(os.environ))  # the command sets cache paths
+    monkeypatch.setattr(sys, "path", list(sys.path))
     assert run.main(["--workload", CELLS[0], "--seed", "3", "--seconds", "1"]) != 0
     assert capsys.readouterr().out == ""
 
