@@ -60,11 +60,11 @@ class Session:
     """The program, its inputs and the call that the window drives."""
 
     def __init__(self, cell: spec.Cell, seed: int, device: torch.device, *,
-                 control: bool = False, table=None):
+                 control: bool = False):
         import repro_torch.pim as pim
 
         self.cell, self.device = cell, device
-        self.calls = Calls(cell.traffic, seed, table)
+        self.calls = Calls(cell.traffic, seed)
         sizes = self.calls.sizes
         if sizes[0] > cell.machine_rows:
             raise ValueError(f"{cell.name}: a call of {sizes[0]} rows exceeds the "
@@ -191,11 +191,11 @@ def read_metrics(entries, run: Run) -> dict:
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: float,
-             device: str = "cuda", control: bool = False, table=None,
+             device: str = "cuda", control: bool = False,
              traffic: dict | None = None) -> tuple[dict, list[str]]:
     """One run of cell ``name``; returns the result line's object and the
     check lines.  ``t_start`` is the process's start on ``time.perf_counter``.
-    ``device``, ``table`` and ``traffic`` (overrides of the traffic file) are
+    ``device`` and ``traffic`` (overrides of the traffic file's keys) are
     for the CPU tests at tiny sizes; the command never sets them."""
     cell = spec.load_cell(name)
     if traffic:
@@ -203,7 +203,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     kind = torch.cuda.get_device_name(dev) if cuda else "cpu"
-    session = Session(cell, seed, dev, control=control, table=table)
+    session = Session(cell, seed, dev, control=control)
     session.warm_up()
     setup_peak = torch.cuda.max_memory_allocated(dev) if cuda else None
     if cuda:

@@ -1,7 +1,7 @@
 """Runs of every cell on the CPU at a tiny size (the port's plain kernels),
 the control and the planted faults that ``correct`` has to catch, and the
 command's refusals.  A card-only test runs each cell and its control at the
-cell's own size."""
+cell's own size: ``PYTHONPATH=src python3 -m pytest -m gpu pimbench``."""
 
 from __future__ import annotations
 
@@ -28,9 +28,9 @@ SEED = 2**31 + 17
 
 
 def cpu_run(cell: str, seconds: float = 0.4, **kw) -> dict:
-    table = TINY[spec.load_cell(cell).traffic["name"]]
+    traffic = {"rows": TINY[spec.load_cell(cell).traffic["name"]], **CHECK_ALL}
     result, lines = harness.run_cell(cell, SEED, seconds, False, t_start=time.perf_counter(),
-                                     device="cpu", table=table, traffic=CHECK_ALL, **kw)
+                                     device="cpu", traffic=traffic, **kw)
     assert lines[-3:] == [f"check {k} {v['value']} " + (f"<= {v['max']}" if "max" in v
                                                           else f">= {v['min']}")
                           for k, v in result["checks"].items()]

@@ -37,8 +37,8 @@ class Calls:
     which calls the correctness check keeps (every ``check_every``-th, from
     a phase drawn from the seed)."""
 
-    def __init__(self, traffic: dict, seed: int, table=None):
-        self.order = smooth_order(table if table is not None else traffic["rows"])
+    def __init__(self, traffic: dict, seed: int):
+        self.order = smooth_order(traffic["rows"])
         self.sets = int(traffic["pool_sets"])
         self.check_every = int(traffic["check_every"])
         rng = np.random.default_rng(seed)
