@@ -34,8 +34,10 @@ CACHE_ENV = {
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro"}
 
 
-def forbidden_modules() -> list[str]:
-    return sorted({name.split(".", 1)[0] for name in sys.modules} & FORBIDDEN)
+def forbidden_modules(modules=None) -> list[str]:
+    """The forbidden top-level names among ``modules`` (``sys.modules``)."""
+    names = sys.modules if modules is None else modules
+    return sorted({name.split(".", 1)[0] for name in names} & FORBIDDEN)
 
 
 def power_limit() -> str:

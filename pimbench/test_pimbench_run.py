@@ -40,9 +40,9 @@ def cpu_run(cell: str, seconds: float = 0.4, **kw) -> dict:
 @pytest.mark.parametrize("cell", CELLS)
 def test_cpu_run_is_correct(cell):
     result = cpu_run(cell)
-    assert result["correct"] and result["failed"] == 0 and result["attempted"] >= 2
+    assert result["correct"] and result["failed"] == 0 and result["attempted"] >= 1
     assert result["checks"]["wrong_rows"]["value"] == 0
-    assert result["checks"]["checked_calls"]["value"] >= 2
+    assert result["checks"]["checked_calls"]["value"] >= 1
     assert list(result)[-1] == "checks"
     # Every end-to-end metric of the cell but the card's memory.
     assert set(result["metrics"]) == {m["name"] for m in spec.load_cell(cell).end_to_end} - {
@@ -96,12 +96,11 @@ def test_command_refuses_without_a_card(monkeypatch, capsys):
     assert capsys.readouterr().out == ""
 
 
-def test_command_refuses_jax_by_whole_names(monkeypatch):
-    monkeypatch.setitem(sys.modules, "repro_torch_lookalike", object())
-    assert run.forbidden_modules() == []
-    monkeypatch.setitem(sys.modules, "jax.numpy", object())
-    monkeypatch.setitem(sys.modules, "repro.core", object())
-    assert run.forbidden_modules() == ["jax", "repro"]
+def test_command_refuses_jax_by_whole_names():
+    clean = ["torch", "repro_torch.pim", "repro_torch_lookalike", "reproduce", "jaxtyping"]
+    assert run.forbidden_modules(clean) == []
+    assert run.forbidden_modules([*clean, "jax.numpy", "repro.core", "flax"]) == [
+        "flax", "jax", "repro"]
 
 
 def test_command_fails_with_the_benchmark_alone(tmp_path):
