@@ -6,11 +6,12 @@ program through ``repro_torch.pim.compile`` and calls it once at every size
 the cell's traffic sends (which builds the kernels on a checkout's first
 run).  The window then issues calls in a closed loop for ``seconds``: each
 call is ``fn(*inputs, basis=...)`` followed by ``torch.cuda.synchronize()``,
-timed on the host clock.  Every ``check_every``-th call's result is copied
-into a ring of ``check_slots`` preallocated rows; once the window has closed
-they are compared with the NumPy reference.  A traced run then drives
-``trace_calls`` more calls under ``torch.profiler`` for the per-layer
-metrics.
+timed on the host clock.  ``check_per_size`` results of every size the
+window sends, drawn from the seed over the whole window
+(``traffic.Calls.keep_slot``), are copied into preallocated slots; once the
+window has closed they are compared with the NumPy reference.  A traced run
+then drives ``trace_calls`` more calls under ``torch.profiler`` for the
+per-layer metrics.
 """
 
 from __future__ import annotations
@@ -92,23 +93,23 @@ class Session:
 
     def warm_up(self) -> None:
         """One call at every size the traffic sends, largest first; then the
-        ring that keeps the checked results."""
+        slots that keep the checked results, ``check_per_size`` of each size."""
         out = None
         for rows in self.calls.sizes:
             out = self.fn(*[x[:rows] for x in self.pool[0]])
             self.sync()
-        slots = int(self.cell.traffic["check_slots"])
-        self.ring = torch.empty((slots, self.calls.sizes[0]), dtype=out.dtype,
-                                device=self.device)
+        self.ring = {rows: torch.empty((self.calls.per_size, rows), dtype=out.dtype,
+                                       device=self.device) for rows in self.calls.sizes}
         self.sync()
 
     def drive(self, first: int, seconds: float, clock, max_calls: int | None = None,
-              keep: list | None = None):
+              keep: dict | None = None):
         """Calls ``first, first + 1, ...`` until ``seconds`` have passed (or
         ``max_calls`` were made).  Returns ``(spans, failures)``: each
         completed call's ``(rows, start, returned, end)`` on ``clock`` (ns)
-        and each failed call's exception.  With ``keep``, the checked calls'
-        results go to the ring and ``(slot, i, rows, set)`` to ``keep``."""
+        and each failed call's exception.  With ``keep``, the kept results go
+        to their slots and ``keep[(rows, slot)]`` says which call and pool set
+        each came from (and what was wrong with a result of the wrong shape)."""
         spans, failures = [], []
         limit = clock() + int(seconds * 1e9)
         i = first
@@ -124,26 +125,27 @@ class Session:
                 i += 1
                 continue
             spans.append((rows, start, returned, clock()))
-            if keep is not None and self.calls.checked(i):
-                slot = (i // self.calls.check_every) % self.ring.shape[0]
-                keep[:] = [k for k in keep if k[0] != slot]
-                if out.shape == (rows,) and out.dtype == self.ring.dtype:
-                    self.ring[slot, :rows].copy_(out)
-                    keep.append((slot, i, rows, s))
+            slot = None if keep is None else self.calls.keep_slot(rows)
+            if slot is not None:
+                if out.shape == (rows,) and out.dtype == self.ring[rows].dtype:
+                    self.ring[rows][slot].copy_(out)
+                    keep[(rows, slot)] = (i, s, None)
                 else:
-                    keep.append((slot, i, rows, s, f"{tuple(out.shape)} {out.dtype}"))
+                    keep[(rows, slot)] = (i, s, f"{tuple(out.shape)} {out.dtype}")
             i += 1
         return spans, failures
 
 
-def check(session: Session, keep: list) -> tuple[int, int, int]:
+CHECK_BLOCK = 1 << 16  # rows of the reference computed at a time
+
+
+def check(session: Session, keep: dict) -> tuple[int, int, int]:
     """``(wrong rows, checked calls, checked rows)`` of the kept results
     against the reference.  Copies what it needs to the host, frees the
     card's state, then computes the reference on the host."""
-    got, sets = [], {}
-    for k in keep:
-        slot, _, rows, s = k[:4]
-        got.append(None if len(k) > 4 else session.ring[slot, :rows].cpu().numpy())
+    got, sets = {}, {}
+    for (rows, slot), (_, s, bad_shape) in keep.items():
+        got[rows, slot] = None if bad_shape else session.ring[rows][slot].cpu().numpy()
         if s not in sets:
             sets[s] = [x.cpu().numpy() for x in session.pool[s]]
     session.pool = session.ring = None
@@ -151,21 +153,49 @@ def check(session: Session, keep: list) -> tuple[int, int, int]:
         torch.cuda.empty_cache()
     program = session.cell.program
     wrong = rows_checked = 0
-    for k, g in zip(keep, got):
-        rows, s = k[2], k[3]
+    for (rows, slot), (i, s, bad_shape) in sorted(keep.items()):
+        g = got.pop((rows, slot))
         if g is None:
-            _log(f"call {k[1]} returned {k[4]}, not {rows} rows of the ring's dtype")
+            _log(f"call {i} returned {bad_shape}, not {rows} rows of the slot's dtype")
             wrong += rows
             continue
-        want = reference.reference(program, [x[:rows] for x in sets[s]])
-        bad = reference.wrong_rows(program, g, want)
+        bad = 0
+        for lo in range(0, rows, CHECK_BLOCK):  # blocks that stay in the host's caches
+            hi = min(lo + CHECK_BLOCK, rows)
+            want = reference.reference(program, [x[lo:hi] for x in sets[s]])
+            n = reference.wrong_rows(program, g[lo:hi], want)
+            if n and not bad:
+                first = int(np.flatnonzero(reference.wrong_mask(program, g[lo:hi], want))[0])
+                _log(f"call {i} ({rows} rows, set {s}): the first wrong row is {lo + first}: "
+                     f"{g[lo + first]!r} against {want[first]!r}")
+            bad += n
         if bad:
-            first = int(np.flatnonzero(reference.wrong_mask(program, g, want))[0])
-            _log(f"call {k[1]} ({rows} rows, set {s}): {bad} wrong rows, the first at row "
-                 f"{first}: {g[first]!r} against {want[first]!r}")
+            _log(f"call {i} ({rows} rows, set {s}): {bad} wrong rows")
         wrong += bad
         rows_checked += rows
     return wrong, len(keep), rows_checked
+
+
+def allocator_counts(dev: torch.device) -> dict:
+    """The caching allocator's device allocations, frees and retries so far."""
+    if dev.type != "cuda":
+        return {}
+    stats = torch.cuda.memory_stats(dev)
+    return {k: stats.get(k, 0) for k in ("num_device_alloc", "num_device_free",
+                                         "num_alloc_retries")}
+
+
+STRETCH_S = 5.0
+
+
+def stretches(spans, window_start: float) -> list[float]:
+    """Millions of rows a second in each ``STRETCH_S`` of the window, by the
+    calls that ended in it: how the pace moves within a run."""
+    done: dict[int, int] = {}
+    for rows, _, _, end in spans:
+        k = int((end / 1e9 - window_start) // STRETCH_S)
+        done[k] = done.get(k, 0) + rows
+    return [round(done.get(k, 0) / STRETCH_S / 1e6, 3) for k in range(max(done, default=-1) + 1)]
 
 
 def breakdown(trace: tracing.Trace) -> dict:
@@ -208,16 +238,20 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
     setup_peak = torch.cuda.max_memory_allocated(dev) if cuda else None
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
+    allocs = allocator_counts(dev)
     window_start = time.perf_counter()
     setup_s = window_start - t_start
 
-    keep: list = []
+    keep: dict = {}
     spans, failures = session.drive(0, seconds, time.perf_counter_ns, keep=keep)
     peak_bytes = torch.cuda.max_memory_allocated(dev) if cuda else None
+    allocs = {k: v - allocs[k] for k, v in allocator_counts(dev).items()}
     made = len(spans) + len(failures)
     window_s = (spans[-1][3] / 1e9 - window_start) if spans else time.perf_counter() - window_start
     _log(f"set-up {setup_s:.6f} s (peak {setup_peak} bytes); window {len(spans)} calls in "
          f"{window_s:.6f} s")
+    _log(f"the caching allocator in the window: {allocs}")
+    _log(f"Melem/s by {STRETCH_S:g}-s stretch: {stretches(spans, window_start)}")
     calls = [CallRecord(r, (e - s) / 1e9, (ret - s) / 1e9) for r, s, ret, e in spans]
 
     traced = None
@@ -243,8 +277,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
               peak=peak_for(kind) if cuda else None, trace=traced)
     checks = {"wrong_rows": {"value": wrong, "max": 0},
               "failed_calls": {"value": len(failures), "max": 0},
-              "checked_calls": {"value": checked, "min": 1}}
-    correct = wrong == 0 and not failures and checked >= 1
+              "checked_calls": {"value": checked, "min": 1},
+              "unchecked_sizes": {"value": len({r for r, *_ in spans} - {r for r, _ in keep}),
+                                  "max": 0}}
+    correct = (wrong == 0 and not failures and checked >= 1
+               and checks["unchecked_sizes"]["value"] == 0)
     if failures:
         _log(f"{len(failures)} calls failed; the first: {failures[0]!r}")
     result = {

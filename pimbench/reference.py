@@ -81,7 +81,7 @@ def _evaluate(node: ast.expr, env: dict, const, binop, neg):
 
 
 def _wrap(v, nbits: int):
-    """Two's-complement wrap to ``nbits`` (NumPy int64 or torch integer)."""
+    """Two's-complement wrap to ``nbits`` (NumPy or torch integers)."""
     half = 1 << (nbits - 1)
     return ((v + half) & ((1 << nbits) - 1)) - half
 
@@ -101,7 +101,8 @@ def _float_binop(op, x, y):
 
 def reference(program: dict, inputs: list[np.ndarray]) -> np.ndarray:
     """The program over ``inputs`` in NumPy: float32 with one IEEE rounding
-    an operation, or fixed point wrapped after each operation (int64)."""
+    an operation, or fixed point wrapped after each operation (int32 up to
+    16 bits, int64 above)."""
     t = elem_type(program["dtype"])
     tree = parse(program["expr"], program["args"])
     if t.kind == "float32":
@@ -109,9 +110,13 @@ def reference(program: dict, inputs: list[np.ndarray]) -> np.ndarray:
         with np.errstate(all="ignore"):
             return np.asarray(_evaluate(tree, env, lambda v: np.float32(float(v)), _float_binop,
                                         np.negative), dtype=np.float32)
-    env = dict(zip(program["args"], (_wrap(np.asarray(x, dtype=np.int64), t.nbits)
+    # Each operation's operands are wrapped to nbits, so its exact result is
+    # at most 2 ** (2 * nbits - 2) in size: int32 holds it, and the wrap's
+    # offset, up to 16 bits.
+    carrier = np.int32 if t.nbits <= 16 else np.int64
+    env = dict(zip(program["args"], (_wrap(np.asarray(x, dtype=carrier), t.nbits)
                                      for x in inputs)))
-    return _evaluate(tree, env, lambda v: _wrap(np.int64(int(v)), t.nbits),
+    return _evaluate(tree, env, lambda v: _wrap(carrier(int(v)), t.nbits),
                      _int_binop(t.nbits), lambda v: _wrap(-v, t.nbits))
 
 

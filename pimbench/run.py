@@ -72,9 +72,6 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     torch.set_num_threads(2)
-    import repro_torch.kernels._build as build
-
-    build.BUILD_DIR = ROOT / "build" / "kernels"
     result, checks = harness.run_cell(args.workload, args.seed, args.seconds, bool(args.trace),
                                       t_start=T_START, control=bool(args.control))
     found = forbidden_modules()

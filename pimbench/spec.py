@@ -41,7 +41,7 @@ class Cell:
 
     @property
     def machine_rows(self) -> int:
-        """Rows of the configured slice of the machine."""
+        """Rows of the configured machine."""
         return self.config["num_crossbars"] * self.config["crossbar_rows"]
 
 

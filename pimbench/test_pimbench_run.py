@@ -23,7 +23,7 @@ CELLS = [w["name"] for w in spec.load_json(spec.ROOT / "BENCHMARK.json")["worklo
 TINY = {"f32_bulk": [[300, 1]], "int8_bulk": [[1000, 1]],
         "resnet50_f32": [[40, 2048], [100, 18944], [130, 19456], [200, 8960], [260, 4352],
                          [300, 768], [520, 403]]}
-CHECK_ALL = {"check_every": 1, "check_slots": 2}
+CHECK_ALL = {"check_per_size": 2}
 SEED = 2**31 + 17
 
 
@@ -31,7 +31,7 @@ def cpu_run(cell: str, seconds: float = 0.4, **kw) -> dict:
     traffic = {"rows": TINY[spec.load_cell(cell).traffic["name"]], **CHECK_ALL}
     result, lines = harness.run_cell(cell, SEED, seconds, False, t_start=time.perf_counter(),
                                      device="cpu", traffic=traffic, **kw)
-    assert lines[-3:] == [f"check {k} {v['value']} " + (f"<= {v['max']}" if "max" in v
+    assert lines[-len(result["checks"]):] == [f"check {k} {v['value']} " + (f"<= {v['max']}" if "max" in v
                                                           else f">= {v['min']}")
                           for k, v in result["checks"].items()]
     return result
@@ -85,6 +85,25 @@ def test_planted_faults_are_caught(monkeypatch, cell, fault):
     monkeypatch.setattr(pim_bitserial, "run_schedule",
                         lambda key, planes, mode="auto": fault(orig, key, planes, mode))
     result = cpu_run(cell, seconds=0.2)
+    assert not result["correct"] and result["checks"]["wrong_rows"]["value"] > 0
+
+
+def test_a_fault_in_one_call_size_is_caught(monkeypatch):
+    """Every size sent is checked: a fault that only the calls of one size
+    meet, one call in three, fails the run."""
+    from repro_torch.kernels import pim_bitserial
+
+    orig = pim_bitserial.run_schedule
+
+    def rare_size_altered(key, planes, mode="auto"):
+        return (_altered if planes.shape[1] == 17 else lambda o, *a: o(*a))(
+            orig, key, planes, mode)
+
+    monkeypatch.setattr(pim_bitserial, "run_schedule", rare_size_altered)
+    result, _ = harness.run_cell("memristive.resnet50_f32", SEED, 1.5, False,
+                                 t_start=time.perf_counter(), device="cpu",
+                                 traffic={"rows": [[40, 2], [520, 1]], "check_per_size": 1})
+    assert result["attempted"] >= 3 and result["checks"]["unchecked_sizes"]["value"] == 0
     assert not result["correct"] and result["checks"]["wrong_rows"]["value"] > 0
 
 

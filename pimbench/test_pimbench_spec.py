@@ -110,7 +110,7 @@ def test_cell_files_load(cell):
     assert c.traffic["program"] == c.program["name"]
     assert c.basis in c.program["work"]
     assert max(r for r, _ in c.traffic["rows"]) <= c.machine_rows
-    for key in ("pool_sets", "check_every", "check_slots", "trace_calls"):
+    for key in ("pool_sets", "check_per_size", "trace_calls"):
         assert int(c.traffic[key]) >= 1
     assert {"gates", "planes_in", "planes_out"} <= set(c.work)
     assert c.end_to_end and c.per_layer

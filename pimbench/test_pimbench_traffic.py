@@ -43,17 +43,41 @@ def test_seeded_draws_repeat():
     a, b, c = Calls(RESNET, 2**31 + 99), Calls(RESNET, 2**31 + 99), Calls(RESNET, 12)
     seq = [a.rows(i) for i in range(300)]
     assert seq == [b.rows(i) for i in range(300)]
-    assert (a.offset, a.phase) != (c.offset, c.phase)
-    assert [a.checked(i) for i in range(40)] == [b.checked(i) for i in range(40)]
-    assert 0 <= a.phase < a.check_every
+    assert a.offset != c.offset
+    kept = [a.keep_slot(r) for r in seq]
+    assert kept == [b.keep_slot(r) for r in seq]
+    assert kept != [c.keep_slot(r) for r in seq]
     assert [a.pool_set(i) for i in range(6)] == [0, 1, 2, 3, 0, 1]
 
 
 def test_bulk_traffic_sends_one_size():
     bulk = spec.load_json(spec.PKG / "traffic" / "f32_bulk.json")
     calls = Calls(bulk, 3)
-    assert calls.sizes == [16_777_216]
-    assert {calls.rows(i) for i in range(10)} == {16_777_216}
+    assert calls.sizes == [402_653_184]
+    assert {calls.rows(i) for i in range(10)} == {402_653_184}
+
+
+def test_every_size_is_kept_and_the_draw_spans_the_window():
+    """Reservoir sampling keeps ``check_per_size`` calls of every size sent,
+    each of a size's calls with the same chance, late ones as early ones."""
+    per_size, n = RESNET["check_per_size"], 3000
+    last_kept = []
+    for seed in range(60):
+        calls = Calls(RESNET, seed)
+        kept: dict = {}
+        for i in range(n):
+            rows = calls.rows(i)
+            slot = calls.keep_slot(rows)
+            assert slot is None or 0 <= slot < per_size
+            if slot is not None:
+                kept[rows, slot] = i
+        sent = {calls.rows(i) for i in range(n)}
+        assert {r for r, _ in kept} == sent == set(calls.sizes)
+        assert all(len([1 for r, _ in kept if r == size]) == min(per_size, calls.seen[size])
+                   for size in sent)
+        last_kept.append(max(i for (r, _), i in kept.items() if r == 401_408))
+    # The kept calls of a common size lie spread over the window, not at its end.
+    assert min(last_kept) < n / 2 < max(last_kept)
 
 
 def test_bad_tables_are_refused():

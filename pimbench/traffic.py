@@ -7,6 +7,11 @@ size in its share to within two calls; the seed picks where in that period
 the run starts.  Every seed thus sends the same mix of work in a window,
 and a run's spread is the system's, not the draw's.  Call ``i`` takes the
 first rows of pool set ``i % pool_sets``.
+
+The correctness check keeps ``check_per_size`` results of every size the
+window sends, each a uniform draw over all the window's calls of that size
+(reservoir sampling, from the seed): every size is checked, and a call late
+in the window is as likely to be as an early one.
 """
 
 from __future__ import annotations
@@ -34,16 +39,15 @@ def smooth_order(table: list[list[int]]) -> np.ndarray:
 
 class Calls:
     """The rows and pool set of every call a run makes, from its seed, and
-    which calls the correctness check keeps (every ``check_every``-th, from
-    a phase drawn from the seed)."""
+    which results the correctness check keeps."""
 
     def __init__(self, traffic: dict, seed: int):
         self.order = smooth_order(traffic["rows"])
         self.sets = int(traffic["pool_sets"])
-        self.check_every = int(traffic["check_every"])
-        rng = np.random.default_rng(seed)
-        self.offset = int(rng.integers(len(self.order)))
-        self.phase = int(rng.integers(self.check_every))
+        self.per_size = int(traffic["check_per_size"])
+        self._rng = np.random.default_rng(seed)
+        self.offset = int(self._rng.integers(len(self.order)))
+        self.seen: dict[int, int] = {}  # the window's calls of each size so far
 
     def rows(self, i: int) -> int:
         return int(self.order[(self.offset + i) % len(self.order)])
@@ -51,8 +55,16 @@ class Calls:
     def pool_set(self, i: int) -> int:
         return i % self.sets
 
-    def checked(self, i: int) -> bool:
-        return i % self.check_every == self.phase
+    def keep_slot(self, rows: int) -> int | None:
+        """The slot, of this size's ``check_per_size``, that the result of
+        the window's next call of ``rows`` rows takes, or None when it is not
+        kept.  Of the ``n`` calls of a size, each ends up kept with the same
+        chance, ``check_per_size / n``."""
+        n = self.seen[rows] = self.seen.get(rows, 0) + 1
+        if n <= self.per_size:
+            return n - 1
+        j = int(self._rng.integers(n))
+        return j if j < self.per_size else None
 
     @property
     def sizes(self) -> list[int]:
