@@ -59,6 +59,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from . import spans
 from .bitplanes import as_int32_words
 from .machine import (
     CYCLES_PER_GATE_MEMRISTIVE,
@@ -996,12 +997,15 @@ def record_op(op: str, nbits: int = 32) -> ScheduleIR:
 _COMPILE_CACHE: dict[
     tuple[str, str, tuple[str, ...]], CompiledSchedule
 ] = {}
-_CACHE_STATS = {"hits": 0, "misses": 0}
+_CACHE_STATS = spans.CounterView({"hits": "ir.compile.hits", "misses": "ir.compile.misses"})
 
 
 def cache_stats() -> dict[str, int]:
-    """Compile-cache hit/miss counters (reported by ``benchmarks.smoke`` so
-    cache regressions are visible in CI logs)."""
+    """Compile-cache hits and misses: the counters ``ir.compile.hits`` and
+    ``ir.compile.misses`` of :mod:`repro_torch.core.spans`, printed by
+    ``benchmarks/torch_smoke.py``.  A miss also records an ``ir.compile``
+    span, by which ``pimbench/attribution.py`` counts a call out of
+    ``frontend.cache_hit_share`` (calls that found every cache warm)."""
     return dict(_CACHE_STATS)
 
 
@@ -1021,9 +1025,17 @@ def compile_program(
     cache_key = (program.key, basis.name, passes)
     hit = _COMPILE_CACHE.get(cache_key)
     if hit is not None:
-        _CACHE_STATS["hits"] += 1
+        spans.count("ir.compile.hits")
         return hit
-    _CACHE_STATS["misses"] += 1
+    spans.count("ir.compile.misses")
+    with spans.span("ir.compile", basis=basis.name):
+        compiled = _compile_uncached(program, passes, basis)
+    _COMPILE_CACHE[cache_key] = compiled
+    return compiled
+
+
+def _compile_uncached(program: Program, passes: tuple[str, ...],
+                      basis: LogicBasis) -> CompiledSchedule:
     recorded = record_program(program)
     if basis.name == "dram":
         recorded = lower_to_dram(recorded)
@@ -1043,7 +1055,6 @@ def compile_program(
         if compiled.num_cols <= baseline_cols:
             break
     compiled.meta["baseline_cols"] = baseline_cols
-    _COMPILE_CACHE[cache_key] = compiled
     return compiled
 
 

@@ -27,7 +27,9 @@ The ``cuda`` backend picks the kernel by gate count
 does; ``cuda-unrolled`` / ``cuda-loop`` force one.  For CUDA tensors the
 backends launch the kernel or raise; for CPU tensors they run the kernel's
 plain PyTorch version (:func:`loop_plain`, :func:`unrolled_plain`).  Each
-kernel's launches are counted in :data:`LAUNCHES`.
+kernel's launches are counted in :data:`LAUNCHES`.  The executor's spans
+(``exec.run_schedule``, ``exec.launch``, ``exec.build``) and counters are
+those of :mod:`repro_torch.core.spans`.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.core import ir
+from repro_torch.core import ir, spans
 from repro_torch.core.machine import (
     OP_COPY,
     OP_INIT0,
@@ -84,13 +86,14 @@ MAX_LOOP_COLS = (1 << COL_BITS) - 2  # and the two constant columns
 
 LOOP_SOURCE = Path(__file__).with_name("csrc") / "bitserial_loop.cu"
 
-# Kernel launches on CUDA tensors, one per launch, by kernel.
-LAUNCHES = {"bitserial_loop": 0, "bitserial_unrolled": 0}
+# Kernel launches on CUDA tensors, one per launch, by kernel: the counters
+# ``exec.launches.<kernel>``.
+LAUNCHES = spans.CounterView({k: f"exec.launches.{k}"
+                              for k in ("bitserial_loop", "bitserial_unrolled")})
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    spans.reset_counters("exec.launches.")
 
 
 # ---------------------------------------------------------------------------
@@ -180,7 +183,9 @@ def loop_plain(compiled: ir.CompiledSchedule, planes: torch.Tensor) -> torch.Ten
 
 @functools.lru_cache(maxsize=None)
 def _loop_lib() -> ctypes.CDLL:
-    lib = _build.load("bitserial_loop", LOOP_SOURCE.read_text())
+    spans.count("exec.builds")
+    with spans.span("exec.build", what="loop library"):
+        lib = _build.load("bitserial_loop", LOOP_SOURCE.read_text())
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bitserial_loop_launch.argtypes = [p, p, p, p, p, i, i, i, i,
                                           ctypes.c_longlong, i, p]
@@ -206,13 +211,14 @@ def _launch_loop(key: str, planes: torch.Tensor) -> torch.Tensor:
     if W == 0:
         return out
     stream = torch.cuda.current_stream(planes.device).cuda_stream
-    err = lib.bitserial_loop_launch(
-        planes.data_ptr(), out.data_ptr(), table.data_ptr(),
-        in_slots.data_ptr(), out_slots.data_ptr(), n_in, out.shape[0],
-        table.shape[0], compiled.num_cols, W,
-        words_per_block(compiled.num_cols), stream)
+    words = words_per_block(compiled.num_cols)
+    with spans.span("exec.launch"):
+        err = lib.bitserial_loop_launch(
+            planes.data_ptr(), out.data_ptr(), table.data_ptr(),
+            in_slots.data_ptr(), out_slots.data_ptr(), n_in, out.shape[0],
+            table.shape[0], compiled.num_cols, W, words, stream)
     _check(lib, err, f"bitserial_loop launch for {key!r}")
-    LAUNCHES["bitserial_loop"] += 1
+    spans.count("exec.launches.bitserial_loop")
     return out
 
 
@@ -301,7 +307,9 @@ def unrolled_source(key: str) -> str:
 def _unrolled_lib(key: str) -> ctypes.CDLL:
     lib = _UNROLLED_LIBS.get(key)
     if lib is None:
-        lib = _build.load("bitserial_unrolled", unrolled_source(key))
+        spans.count("exec.builds")
+        with spans.span("exec.build", what="unrolled library"):
+            lib = _build.load("bitserial_unrolled", unrolled_source(key))
         p = ctypes.c_void_p
         lib.bitserial_segment_launch.argtypes = [ctypes.c_int, p, p, p,
                                                  ctypes.c_longlong, p]
@@ -327,11 +335,12 @@ def _launch_unrolled(key: str, planes: torch.Tensor) -> torch.Tensor:
                          device=planes.device) if n_seg > 1 else None)
     state_ptr = state.data_ptr() if state is not None else None
     stream = torch.cuda.current_stream(planes.device).cuda_stream
-    for seg in range(n_seg):
-        err = lib.bitserial_segment_launch(seg, planes.data_ptr(), state_ptr,
-                                           out.data_ptr(), W, stream)
-        _check(lib, err, f"bitserial_unrolled segment {seg} launch for {key!r}")
-        LAUNCHES["bitserial_unrolled"] += 1
+    with spans.span("exec.launch"):
+        for seg in range(n_seg):
+            err = lib.bitserial_segment_launch(seg, planes.data_ptr(), state_ptr,
+                                               out.data_ptr(), W, stream)
+            _check(lib, err, f"bitserial_unrolled segment {seg} launch for {key!r}")
+            spans.count("exec.launches.bitserial_unrolled")
     return out
 
 
@@ -352,6 +361,8 @@ _GENERATIONS: dict[str, int] = {}
 
 
 def _invalidate(key: str) -> None:
+    if key in _GENERATIONS:
+        spans.count("exec.invalidations")
     _LOOP_TABLES.pop(key, None)
     _SEGMENTS.pop(key, None)
     _UNROLLED_LIBS.pop(key, None)
@@ -374,18 +385,22 @@ def _loop_table(key: str, device: torch.device) -> tuple:
     per_device = _LOOP_TABLES.setdefault(key, {})
     table = per_device.get(device)
     if table is None:
-        compiled = _SCHEDULES[key]
-        slots = (torch.tensor(x, dtype=torch.int32)
-                 for x in (compiled.input_slots, compiled.output_slots))
-        table = per_device[device] = tuple(
-            x.to(device).contiguous() for x in (pack_rows(compiled), *slots))
+        spans.count("exec.table_uploads")
+        with spans.span("exec.build", what="table"):
+            compiled = _SCHEDULES[key]
+            slots = (torch.tensor(x, dtype=torch.int32)
+                     for x in (compiled.input_slots, compiled.output_slots))
+            table = per_device[device] = tuple(
+                x.to(device).contiguous() for x in (pack_rows(compiled), *slots))
     return table
 
 
 def _segment_cache(key: str) -> list:
     segments = _SEGMENTS.get(key)
     if segments is None:
-        segments = _SEGMENTS[key] = _segments(_SCHEDULES[key])
+        spans.count("exec.builds")
+        with spans.span("exec.build", what="segments"):
+            segments = _SEGMENTS[key] = _segments(_SCHEDULES[key])
     return segments
 
 
@@ -476,9 +491,10 @@ class CudaBackend(ir.Backend):
     def run(self, compiled, planes=None, mode: str | None = None, **opts):
         if planes is None:
             raise ValueError(f"{self.name} backend needs input planes")
-        key = register_compiled(compiled)
-        out = run_schedule(key, planes, mode=mode or self.mode)
-        return ir.ExecutionResult(out, self.cost(compiled))
+        with spans.span("exec.run_schedule"):
+            key = register_compiled(compiled)
+            out = run_schedule(key, planes, mode=mode or self.mode)
+            return ir.ExecutionResult(out, self.cost(compiled))
 
 
 class CudaUnrolledBackend(CudaBackend):

@@ -40,7 +40,7 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.core import aritpim, ir
+from repro_torch.core import aritpim, ir, spans
 from repro_torch.core.bitplanes import PimType
 
 
@@ -247,23 +247,37 @@ class CompiledPimFunction:
             raise TypeError(
                 f"expected {len(self.in_types)} arrays, got {len(arrays)}")
         device = resolve_device(device)
-        arrays = [t.cast(x, device) for t, x in zip(self.in_types, arrays)]
-        n = arrays[0].shape[0]
-        planes = torch.stack(
-            [p for t, x in zip(self.in_types, arrays) for p in t.to_planes(x)]
-        )
-        compiled = self.compiled(basis, passes)
-        name = backend or self.backend
-        if mode is not None and not name.startswith("cuda"):
-            raise ValueError(
-                f"executor mode {mode!r} only applies to the cuda "
-                f"backends, not {name!r}")
-        opts = {} if mode is None else {"mode": mode}
-        out = ir.get_backend(name).run(compiled, planes, **opts).planes
-        results, i = [], 0
-        for t in self.out_types:
-            results.append(t.from_planes([out[i + j] for j in range(t.width)], n))
-            i += t.width
+        with spans.span("pim.call", dtype=self.in_types[0].name, basis=basis) as call:
+            cast = []
+            for t, x in zip(self.in_types, arrays):
+                with spans.span("frontend.cast"):
+                    cast.append(t.cast(x, device))
+            n = cast[0].shape[0]
+            call.set("rows", n)
+            spans.count("pim.calls")
+            spans.count("pim.rows", n)
+            planes = []
+            for t, x in zip(self.in_types, cast):
+                with spans.span("pack.to_planes"):
+                    planes += t.to_planes(x)
+            with spans.span("pack.stack"):
+                planes = torch.stack(planes)
+            spans.count("pack.planes", planes.shape[0])
+            with spans.span("frontend.compile_cache"):
+                compiled = self.compiled(basis, passes)
+            name = backend or self.backend
+            if mode is not None and not name.startswith("cuda"):
+                raise ValueError(
+                    f"executor mode {mode!r} only applies to the cuda "
+                    f"backends, not {name!r}")
+            opts = {} if mode is None else {"mode": mode}
+            out = ir.get_backend(name).run(compiled, planes, **opts).planes
+            results, i = [], 0
+            for t in self.out_types:
+                with spans.span("unpack.from_planes"):
+                    results.append(t.from_planes([out[i + j] for j in range(t.width)], n))
+                i += t.width
+            spans.count("unpack.planes", i)
         return results[0] if len(results) == 1 else tuple(results)
 
 
