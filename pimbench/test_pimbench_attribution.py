@@ -160,8 +160,8 @@ def test_the_probe_reads_every_window_on_the_cpu(tiny_session):
     assert readings["pack.in.device_ms"] == 0  # no device on the CPU
     costs = spans_probe.site_costs(tiny_session)
     # pim.call, 3 casts, 3 packings, the stack, the cache, the executor, 1 unpacking;
-    # calls, rows, planes in and out, the compile cache's hit.
-    assert costs["sites_a_call"] == {"span": 11, "count": 5}
+    # the compile cache's hit (a card run adds the executor's launch count).
+    assert costs["sites_a_call"] == {"span": 11, "count": 1}
     assert 0 < costs["span_site_ns"] < costs["span_site_on_ns"]
     assert 0 < costs["off_ns_a_call"] < costs["on_ns_a_call"]
     timed = spans_probe.loop(tiny_session, 4, blocks=2)

@@ -16,7 +16,7 @@ one shared object that does nothing: no clock read, no record.
 
 Counters are always on: :func:`count` adds into one dict, :func:`counters`
 reads it and :func:`reset_counters` clears it.  :class:`CounterView` gives
-some counters a dict's interface under names of their own (the executor's
+some counters a dict's interface under names of their own (the executors'
 ``LAUNCHES``, the compile cache's ``cache_stats()``).
 
 Spans and counters of the main path (``pim.compile(fn, dtype)(...)``):
@@ -37,12 +37,11 @@ span                     what it covers
 ``unpack.from_planes``   ``PimType.from_planes`` of one output
 =======================  ==================================================
 
-Counters: ``pim.calls``, ``pim.rows``, ``pack.planes``, ``unpack.planes``,
-``ir.compile.hits``, ``ir.compile.misses``,
-``exec.launches.bitserial_loop``, ``exec.launches.bitserial_unrolled``,
-``exec.builds`` (library builds or loads and segment generations),
-``exec.table_uploads`` and ``exec.invalidations`` (a schedule key bound
-again, which drops its tables, segments and library).
+Counters: ``ir.compile.hits`` and ``ir.compile.misses`` (read by
+``ir.cache_stats()``), and one launch count a kernel,
+``exec.launches.bitserial_loop``, ``exec.launches.bitserial_unrolled`` and
+``exec.launches.mm_<variant>`` (read by each executor's ``LAUNCHES``).
+A cache miss of the executor is its ``exec.build`` span, not a counter.
 """
 
 from __future__ import annotations

@@ -93,7 +93,7 @@ LAUNCHES = spans.CounterView({k: f"exec.launches.{k}"
 
 
 def reset_launches() -> None:
-    spans.reset_counters("exec.launches.")
+    spans.reset_counters("exec.launches.bitserial_")
 
 
 # ---------------------------------------------------------------------------
@@ -183,7 +183,6 @@ def loop_plain(compiled: ir.CompiledSchedule, planes: torch.Tensor) -> torch.Ten
 
 @functools.lru_cache(maxsize=None)
 def _loop_lib() -> ctypes.CDLL:
-    spans.count("exec.builds")
     with spans.span("exec.build", what="loop library"):
         lib = _build.load("bitserial_loop", LOOP_SOURCE.read_text())
     p, i = ctypes.c_void_p, ctypes.c_int
@@ -307,7 +306,6 @@ def unrolled_source(key: str) -> str:
 def _unrolled_lib(key: str) -> ctypes.CDLL:
     lib = _UNROLLED_LIBS.get(key)
     if lib is None:
-        spans.count("exec.builds")
         with spans.span("exec.build", what="unrolled library"):
             lib = _build.load("bitserial_unrolled", unrolled_source(key))
         p = ctypes.c_void_p
@@ -361,8 +359,6 @@ _GENERATIONS: dict[str, int] = {}
 
 
 def _invalidate(key: str) -> None:
-    if key in _GENERATIONS:
-        spans.count("exec.invalidations")
     _LOOP_TABLES.pop(key, None)
     _SEGMENTS.pop(key, None)
     _UNROLLED_LIBS.pop(key, None)
@@ -385,7 +381,6 @@ def _loop_table(key: str, device: torch.device) -> tuple:
     per_device = _LOOP_TABLES.setdefault(key, {})
     table = per_device.get(device)
     if table is None:
-        spans.count("exec.table_uploads")
         with spans.span("exec.build", what="table"):
             compiled = _SCHEDULES[key]
             slots = (torch.tensor(x, dtype=torch.int32)
@@ -398,7 +393,6 @@ def _loop_table(key: str, device: torch.device) -> tuple:
 def _segment_cache(key: str) -> list:
     segments = _SEGMENTS.get(key)
     if segments is None:
-        spans.count("exec.builds")
         with spans.span("exec.build", what="segments"):
             segments = _SEGMENTS[key] = _segments(_SCHEDULES[key])
     return segments

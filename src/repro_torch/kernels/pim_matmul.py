@@ -39,6 +39,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.core import spans
+
 from . import _build
 
 DEFAULT_BM = 128
@@ -53,13 +55,13 @@ VARIANTS = {"general": False, "f32_small": False, "f32_simt128": False,
             "bf16_mma": True, "bf16_wgmma64": True, "bf16_wgmma128": True}
 TENSOR_CORE_VARIANTS = tuple(v for v, tensor_cores in VARIANTS.items() if tensor_cores)
 
-# Kernel launches on CUDA tensors, one per launch, by variant.
-LAUNCHES = dict.fromkeys(VARIANTS, 0)
+# Kernel launches on CUDA tensors, one per launch, by variant: the counters
+# ``exec.launches.mm_<variant>`` of :mod:`repro_torch.core.spans`.
+LAUNCHES = spans.CounterView({v: f"exec.launches.mm_{v}" for v in VARIANTS})
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    spans.reset_counters("exec.launches.mm_")
 
 
 def plan(G: int, M: int, K: int, N: int, dtype: torch.dtype) -> str:
@@ -168,7 +170,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, variant: str) -> torch.Tensor:
         msg = lib.pim_matmul_error_string(err).decode()
         raise RuntimeError(f"pim_matmul {variant} launch for {tuple(a.shape)} @ "
                            f"{tuple(b.shape)} failed: CUDA error {err} ({msg})")
-    LAUNCHES[variant] += 1
+    spans.count(f"exec.launches.mm_{variant}")
     return out
 
 

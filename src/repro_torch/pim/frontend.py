@@ -254,15 +254,12 @@ class CompiledPimFunction:
                     cast.append(t.cast(x, device))
             n = cast[0].shape[0]
             call.set("rows", n)
-            spans.count("pim.calls")
-            spans.count("pim.rows", n)
             planes = []
             for t, x in zip(self.in_types, cast):
                 with spans.span("pack.to_planes"):
                     planes += t.to_planes(x)
             with spans.span("pack.stack"):
                 planes = torch.stack(planes)
-            spans.count("pack.planes", planes.shape[0])
             with spans.span("frontend.compile_cache"):
                 compiled = self.compiled(basis, passes)
             name = backend or self.backend
@@ -277,7 +274,6 @@ class CompiledPimFunction:
                 with spans.span("unpack.from_planes"):
                     results.append(t.from_planes([out[i + j] for j in range(t.width)], n))
                 i += t.width
-            spans.count("unpack.planes", i)
         return results[0] if len(results) == 1 else tuple(results)
 
 
