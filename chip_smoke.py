@@ -121,7 +121,8 @@ from repro_torch.core.costmodel import H100  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.configs import SHAPES  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticStream  # noqa: E402
-from repro_torch.kernels import _build, ops, pim_bitserial, pim_matmul  # noqa: E402
+from repro_torch.core import bitplanes  # noqa: E402
+from repro_torch.kernels import _build, ops, pim_bitplanes, pim_bitserial, pim_matmul  # noqa: E402
 from repro_torch.launch import steps as lm_steps  # noqa: E402
 from repro_torch.launch import train as lm_train  # noqa: E402
 from repro_torch.launch.graphs import GraphedTrainStep  # noqa: E402
@@ -148,6 +149,10 @@ PERF_MD_FIRST_LOOP = "PERF.md's record of the first loop kernel (H100 80GB HBM3,
 PERF_MD_FIRST_LOOP_MS = {"f32 MAC memristive": 40.4022, "f32 MAC dram": 30.3298}
 TIMED_LAUNCHES = 20
 PLAIN_REPS = 2
+# The packing phase: the packing kernels at the benchmark's bulk call size
+# (Table 1's 48 GiB machine, one row each), each against its bytes at
+# HBM_BYTES_PER_S.
+PACK_ROWS = 402_653_184
 # CNN logits on the card (float32, TF32 off) against float64 on the CPU:
 # max-abs error at most this share of the largest |logit|.  TF32 rounds each
 # product's inputs to 10 mantissa bits (relative 2^-11 = 4.9e-4), which this
@@ -279,6 +284,65 @@ def bound_ms(compiled, words: int, int32_ops_per_s: float) -> tuple[float, str]:
 def stacked_planes(fn, arrays, device) -> torch.Tensor:
     return torch.stack([p for t, x in zip(fn.in_types, arrays)
                         for p in t.to_planes(t.cast(x, device))])
+
+
+def packing_phase(dev: torch.device) -> list[dict]:
+    """The packing kernels at PACK_ROWS rows: a f32 and an int8 MAC's three
+    arguments packed into one plane buffer as a call packs them, and one
+    output unpacked, each first held bit for bit against the plain PyTorch
+    path, then timed by CUDA events beside its bytes bound and that path."""
+    n, words = PACK_ROWS, bitplanes.num_words(PACK_ROWS)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    pim_bitplanes.reset_launches()
+    for t in (pim.f32, pim.int8):
+        if t.kind == "float32":
+            args = [torch.randn(n, generator=gen, device=dev) for _ in range(3)]
+            plain_pack = bitplanes.f32_to_planes
+            plain_unpack = lambda p: bitplanes.planes_to_f32(p, n).view(torch.int32)  # noqa: E731
+        else:
+            args = [torch.randint(-128, 128, (n,), generator=gen, device=dev, dtype=torch.int8)
+                    for _ in range(3)]
+            plain_pack = lambda x: bitplanes.int_to_planes(x, t.nbits)  # noqa: E731
+            plain_unpack = lambda p: bitplanes.planes_to_int(p, n, signed=True)  # noqa: E731
+        planes = torch.empty((3 * t.width, words), dtype=torch.int32, device=dev)
+        result = torch.empty(n, dtype=torch.int32, device=dev)
+        out_rows = planes[:t.width]
+
+        def pack():
+            for k, x in enumerate(args):
+                t.to_planes(x, out=planes[k * t.width:(k + 1) * t.width])
+
+        def unpack():
+            pim_bitplanes.unpack(out_rows, n, t.width, t.kind != "float32", result)
+
+        pack()
+        unpack()
+        for k, x in enumerate(args):
+            require(torch.equal(planes[k * t.width:(k + 1) * t.width], torch.stack(plain_pack(x))),
+                    f"bitplane_pack differs from the plain path: {t.name} argument {k}")
+        require(torch.equal(result, plain_unpack(list(out_rows))),
+                f"bitplane_unpack differs from the plain path: {t.name}")
+        require(torch.equal(result, args[0].view(torch.int32) if t.kind == "float32"
+                            else args[0].to(torch.int32)), f"{t.name}: the round trip")
+        in_bytes = 3 * (n * args[0].element_size() + t.width * words * 4)
+        out_bytes = t.width * words * 4 + n * 4
+        for name, fn, plain, nbytes in (
+                ("bitplane_pack", pack, lambda: [plain_pack(x) for x in args], in_bytes),
+                ("bitplane_unpack", unpack, lambda: plain_unpack(list(out_rows)), out_bytes)):
+            ms = cuda_ms(fn, TIMED_LAUNCHES)
+            plain_ms = cuda_ms(plain, PLAIN_REPS)
+            bms = nbytes / HBM_BYTES_PER_S * 1e3
+            say(f"packing: {name} {t.name}, {'3 arguments' if name == 'bitplane_pack' else '1 output'}"
+                f" of {n} rows: equal to the plain path; {ms:.4f} ms/call, bound {bms:.4f} ms "
+                f"(bytes, {nbytes / 1e9:.3f} GB), {100 * bms / ms:.1f} % of it, "
+                f"{nbytes / ms / 1e6:.0f} GB/s; plain {plain_ms:.2f} ms")
+            rows.append(dict(kernel=name, label=f"{t.name}, {n} rows", ms=ms, plain_ms=plain_ms,
+                             bound_ms=bms, bound_by="bytes"))
+        del args, planes, result, out_rows
+        torch.cuda.empty_cache()
+    say(f"packing: launches {dict(pim_bitplanes.LAUNCHES)}")
+    return rows
 
 
 def matmul_bound(shape, dtype, fp32_flops: float) -> tuple[float, str]:
@@ -1566,6 +1630,7 @@ def main() -> int:
     torch.cuda.synchronize()
 
     pim_bitserial.reset_launches()
+    pim_bitplanes.reset_launches()
     t0 = time.perf_counter()
     got = {basis: f32_mac(xd, yd, zd, basis=basis) for basis in ("memristive", "dram")}
     torch.cuda.synchronize()
@@ -1576,8 +1641,11 @@ def main() -> int:
     got_add = ops.pim_fixed_add(a32d, b32d, nbits=32)
     torch.cuda.synchronize()
     launches = dict(pim_bitserial.LAUNCHES)
-    say(f"main path: launches {launches}; f32 MAC on both bases {f32_s:.2f} s wall "
-        "(first calls, including plane packing)")
+    packing = dict(pim_bitplanes.LAUNCHES)
+    say(f"main path: launches {launches}, packing {packing}; f32 MAC on both bases "
+        f"{f32_s:.2f} s wall (first calls, including plane packing)")
+    require(packing == {"bitplane_pack": 2 * 3 + 3 + 2, "bitplane_unpack": 2 + 1 + 1},
+            f"packing kernel launches in the main path: {packing}")
     require(loop_after_f32 == 2, f"loop kernel launches in the f32 MAC: {loop_after_f32}")
     require(unrolled_after_i8 == 1,
             f"straight-line kernel launches in the int8 MAC: {unrolled_after_i8}")
@@ -1635,6 +1703,7 @@ def main() -> int:
     native_ms = cuda_ms(lambda: xd * yd + zd, TIMED_LAUNCHES)
     say(f"yardstick (the paper's GPU side, not a version of either kernel): "
         f"native f32 x*y then +z on {N} unpacked elements: {native_ms:.4f} ms")
+    pack_results = packing_phase(dev)
 
     mm_launches, mm_results = matmul_phase(dev, fp32_flops)
     mm_lib = _build.library_path(*pim_matmul.build_job())
@@ -1672,7 +1741,7 @@ def main() -> int:
                            "bitserial_loop_kernel", "f32 MAC memristive"),
         "bitserial_unrolled": ("src/repro_torch/kernels/bitserial_codegen.py",
                                "src/repro/kernels/pim_bitserial.py:233",
-                               _build.library_path(*pim_bitserial.build_jobs([int8_c.key])[1]),
+                               _build.library_path(*pim_bitserial.build_jobs([int8_c.key])[-1]),
                                "bitserial_seg", "int8 MAC memristive"),
     }
     line = []
@@ -1686,6 +1755,17 @@ def main() -> int:
             "bound_by": r["bound_by"], "library_ms": None, "case": r["label"],
             **kernel_resources(lib, symbol),
         })
+    pack_lib = _build.library_path(*pim_bitplanes.build_job())
+    for r in pack_results:
+        if r["label"].startswith("f32"):
+            line.append({
+                "name": r["kernel"], "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/bitplanes.cu", "replaces": None,
+                "launches": packing[r["kernel"]], "max_abs_err": 0, "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": "bytes",
+                "library_ms": None, "case": r["label"],
+                **kernel_resources(pack_lib, f"{r['kernel']}_kernel"),
+            })
     for variant in pim_matmul.VARIANTS:
         # Each variant reports its largest Fig 5 case, or its last case.
         runs = [r for r in mm_results if r["variant"] == variant]

@@ -11,7 +11,10 @@ extraction masks with ``& 1`` (a logical shift by masking).
 
 An ``N``-bit number vector is a list of ``N`` planes, LSB first.
 :class:`PimType` packages one element type's plane layout (``F32``,
-``BF16``, ``fixed(n)``) for the frontend and the executors.
+``BF16``, ``fixed(n)``) for the frontend and the executors.  Its
+``to_planes`` / ``from_planes`` run the hand-written CUDA kernels of
+``kernels/pim_bitplanes.py`` on CUDA tensors, and the plain PyTorch
+functions of this module on CPU tensors.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch.kernels import pim_bitplanes
 
 WORD = 32
 
@@ -64,11 +69,17 @@ def unpack_bits(words: torch.Tensor, n_elems: int) -> torch.Tensor:
     return bits.reshape(-1)[:n_elems]
 
 
+def as_int32(x: torch.Tensor) -> torch.Tensor:
+    """An integer vector as int32 two's complement; int64 keeps its low 32
+    bits."""
+    return x.to(torch.int32) if x.dtype != torch.int64 else (
+        (x & 0xFFFFFFFF) - ((x & 0x80000000) << 1)).to(torch.int32)
+
+
 def int_to_planes(x: torch.Tensor, nbits: int) -> list[torch.Tensor]:
     """Two's-complement integer vector ``[n]`` → ``nbits`` packed planes
     (LSB first).  Wider integer types keep their low 32 bits."""
-    ux = x.to(torch.int32) if x.dtype != torch.int64 else (
-        (x & 0xFFFFFFFF) - ((x & 0x80000000) << 1)).to(torch.int32)
+    ux = as_int32(x)
     return [pack_bits((ux >> j) & 1) for j in range(nbits)]
 
 
@@ -165,17 +176,58 @@ class PimType:
             raise TypeError(f"{self.name} takes integer arrays, got {t.dtype}")
         return t
 
-    def to_planes(self, x: torch.Tensor) -> list[torch.Tensor]:
-        """``[n]`` tensor → ``width`` packed planes (LSB first)."""
+    def _carrier(self, x: torch.Tensor) -> torch.Tensor:
+        """The rows the packing kernel reads: int8, int16 or int32 whose
+        low ``width`` bits (sign-extended) are the planes' bits."""
         if self.kind == "float32":
-            return f32_to_planes(x)
+            return x.to(torch.float32).contiguous().view(torch.int32)
         if self.kind == "bf16":
-            return bf16_to_planes(x)
-        return int_to_planes(x, self.nbits)
+            if x.dtype == torch.bfloat16:
+                return x.contiguous().view(torch.int16)
+            return f32_to_bf16_bits(x)
+        return x if x.dtype in pim_bitplanes.CARRIERS else as_int32(x)
 
-    def from_planes(self, planes: list[torch.Tensor], n_elems: int) -> torch.Tensor:
-        """Inverse of :meth:`to_planes` (fixed types decode as signed)."""
+    def to_planes(self, x: torch.Tensor, out: torch.Tensor | None = None):
+        """``[n]`` tensor → ``width`` packed planes (LSB first): a list of
+        ``[ceil(n / 32)]`` int32 planes, or, given ``out`` (int32 ``[width,
+        ceil(n / 32)]``, any row stride), written into its rows and ``out``
+        returned.  A CUDA tensor takes the ``bitplane_pack`` kernel."""
+        if x.device.type == "cuda":
+            planes = pim_bitplanes.pack(self._carrier(x), self.width, out)
+            return list(planes) if out is None else planes
+        if self.kind == "float32":
+            planes = f32_to_planes(x)
+        elif self.kind == "bf16":
+            planes = bf16_to_planes(x)
+        else:
+            planes = int_to_planes(x, self.nbits)
+        if out is None:
+            return planes
+        if out.shape != (self.width, num_words(x.shape[0])) or out.dtype != torch.int32:
+            raise ValueError(f"{self.name}: out must be int32 "
+                             f"[{self.width}, {num_words(x.shape[0])}], got "
+                             f"{out.dtype} {tuple(out.shape)}")
+        for row, p in zip(out, planes):
+            row.copy_(p)
+        return out
+
+    def from_planes(self, planes, n_elems: int) -> torch.Tensor:
+        """Inverse of :meth:`to_planes` (fixed types decode as signed):
+        ``planes`` is a list of ``width`` planes or an int32 ``[width, >=
+        ceil(n / 32)]`` tensor (any row stride).  CUDA planes take the
+        ``bitplane_unpack`` kernel."""
         assert len(planes) == self.width, (self.name, len(planes), self.width)
+        if planes[0].device.type == "cuda":
+            if not isinstance(planes, torch.Tensor):
+                planes = torch.stack(list(planes))
+            bits = pim_bitplanes.unpack(planes, n_elems, self.width,
+                                        signed=self.kind != "float32")
+            if self.kind == "float32":
+                return bits.view(torch.float32)
+            if self.kind == "bf16":
+                return bits.to(torch.int16).view(torch.bfloat16)
+            return bits
+        planes = list(planes)
         if self.kind == "float32":
             return planes_to_f32(planes, n_elems)
         if self.kind == "bf16":

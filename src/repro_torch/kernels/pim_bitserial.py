@@ -53,7 +53,7 @@ from repro_torch.core.machine import (
     operand_slots,
 )
 
-from . import _build, bitserial_codegen
+from . import _build, bitserial_codegen, pim_bitplanes
 
 BLOCK_WORDS = 256
 # Schedules at or below this many gates run straight-line; longer ones run
@@ -184,6 +184,7 @@ def loop_plain(compiled: ir.CompiledSchedule, planes: torch.Tensor) -> torch.Ten
 @functools.lru_cache(maxsize=None)
 def _loop_lib() -> ctypes.CDLL:
     with spans.span("exec.build", what="loop library"):
+        _build.build(build_jobs())  # one nvcc round with the packing kernels
         lib = _build.load("bitserial_loop", LOOP_SOURCE.read_text())
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bitserial_loop_launch.argtypes = [p, p, p, p, p, i, i, i, i,
@@ -420,10 +421,11 @@ def register_schedule(key: str, schedule: Schedule | ir.CompiledSchedule) -> Non
 
 
 def build_jobs(keys=()) -> list[tuple[str, str]]:
-    """``(name, source)`` build jobs of the loop kernel and of the
-    straight-line kernels of the registered schedules ``keys``, for
+    """``(name, source)`` build jobs of the loop kernel, of the packing
+    kernels (``pim_bitplanes``, which every call on the card runs) and of
+    the straight-line kernels of the registered schedules ``keys``, for
     ``_build.build`` to compile all at once."""
-    jobs = [("bitserial_loop", LOOP_SOURCE.read_text())]
+    jobs = [("bitserial_loop", LOOP_SOURCE.read_text()), pim_bitplanes.build_job()]
     jobs += [("bitserial_unrolled", unrolled_source(k)) for k in keys]
     return jobs
 

@@ -41,7 +41,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.core import aritpim, ir, spans
-from repro_torch.core.bitplanes import PimType
+from repro_torch.core.bitplanes import PimType, num_words
 
 
 class TraceError(TypeError):
@@ -254,12 +254,14 @@ class CompiledPimFunction:
                     cast.append(t.cast(x, device))
             n = cast[0].shape[0]
             call.set("rows", n)
-            planes = []
+            # Every input plane, each argument's written in place by to_planes.
+            planes = torch.empty((sum(t.width for t in self.in_types), num_words(n)),
+                                 dtype=torch.int32, device=device)
+            i = 0
             for t, x in zip(self.in_types, cast):
                 with spans.span("pack.to_planes"):
-                    planes += t.to_planes(x)
-            with spans.span("pack.stack"):
-                planes = torch.stack(planes)
+                    t.to_planes(x, out=planes[i:i + t.width])
+                i += t.width
             with spans.span("frontend.compile_cache"):
                 compiled = self.compiled(basis, passes)
             name = backend or self.backend
@@ -272,7 +274,7 @@ class CompiledPimFunction:
             results, i = [], 0
             for t in self.out_types:
                 with spans.span("unpack.from_planes"):
-                    results.append(t.from_planes([out[i + j] for j in range(t.width)], n))
+                    results.append(t.from_planes(out[i:i + t.width], n))
                 i += t.width
         return results[0] if len(results) == 1 else tuple(results)
 
