@@ -217,8 +217,9 @@ class PimType:
         ceil(n / 32)]`` tensor (any row stride).  CUDA planes take the
         ``bitplane_unpack`` kernel."""
         assert len(planes) == self.width, (self.name, len(planes), self.width)
-        if planes[0].device.type == "cuda":
-            if not isinstance(planes, torch.Tensor):
+        stacked = isinstance(planes, torch.Tensor)
+        if (planes if stacked else planes[0]).device.type == "cuda":
+            if not stacked:
                 planes = torch.stack(list(planes))
             bits = pim_bitplanes.unpack(planes, n_elems, self.width,
                                         signed=self.kind != "float32")

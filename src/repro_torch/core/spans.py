@@ -26,8 +26,8 @@ span                     what it covers
 =======================  ==================================================
 ``pim.call``             the whole call (attrs ``dtype``, ``basis``, ``rows``)
 ``frontend.cast``        ``PimType.cast`` of one argument
-``pack.to_planes``       ``PimType.to_planes`` of one argument
-``pack.stack``           the ``torch.stack`` of every input plane
+``pack.to_planes``       ``PimType.to_planes`` of one argument, into the
+                         call's one buffer of input planes
 ``frontend.compile_cache``  the compile-cache lookup
 ``ir.compile``           a compile on a cache miss
 ``exec.run_schedule``    the executor: registration, padding, dispatch
@@ -39,8 +39,9 @@ span                     what it covers
 
 Counters: ``ir.compile.hits`` and ``ir.compile.misses`` (read by
 ``ir.cache_stats()``), and one launch count a kernel,
-``exec.launches.bitserial_loop``, ``exec.launches.bitserial_unrolled`` and
-``exec.launches.mm_<variant>`` (read by each executor's ``LAUNCHES``).
+``exec.launches.bitserial_loop``, ``exec.launches.bitserial_unrolled``,
+``exec.launches.mm_<variant>``, ``pack.launches.bitplane_pack`` and
+``pack.launches.bitplane_unpack`` (read by each module's ``LAUNCHES``).
 A cache miss of the executor is its ``exec.build`` span, not a counter.
 """
 
