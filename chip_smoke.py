@@ -3,14 +3,18 @@
     python3 chip_smoke.py
 
 Builds every kernel from this checkout's sources with ``nvcc`` (sm_90a),
-all at once: both bit-serial executors and the MatPIM matmul (one source,
-one kernel per variant).  Runs ``repro_torch.pim.compile(lambda a, b, c:
+all at once: both bit-serial executors, the packing kernels and the MatPIM
+matmul (one source, one kernel per variant).  Runs ``repro_torch.pim.compile(lambda a, b, c:
 a*b+c)`` on CUDA tensors of 2^24 elements — the f32 MAC on the loop kernel
 on both bases, the int8 MAC and a 32-bit fixed add on the straight-line
-kernel — and checks every result bit for bit against numpy.  Then it holds
-each bit-serial kernel against its plain PyTorch version word for word
+kernel — and checks every result bit for bit against numpy, and that each
+argument went through the packing kernel and each output through the
+unpacking kernel (``pim_bitplanes.LAUNCHES``).  Then it holds each
+bit-serial kernel against its plain PyTorch version word for word
 (including the 13-segment straight-line f32 MAC) and times each with CUDA
-events beside its bound.  The matmul phase drives the paper's Fig 5
+events beside its bound, and does the same for the packing kernels at
+``PACK_ROWS`` rows (the benchmark's bulk call), f32 and int8, each beside
+its bytes bound and the plain path's time.  The matmul phase drives the paper's Fig 5
 benchmark (``benchmarks/torch_fig5_matmul.run()``) and ``ops.pim_matmul_op``
 at every Fig 5 size in float32 and bfloat16 (each operand 2^26 elements)
 and at ragged shapes; it requires the variant ``pim_matmul.plan`` names to

@@ -254,7 +254,7 @@ class CompiledPimFunction:
                     cast.append(t.cast(x, device))
             n = cast[0].shape[0]
             call.set("rows", n)
-            # Every input plane, each argument's written in place by to_planes.
+            # One buffer holds every input plane; to_planes writes each argument's rows.
             planes = torch.empty((sum(t.width for t in self.in_types), num_words(n)),
                                  dtype=torch.int32, device=device)
             i = 0
