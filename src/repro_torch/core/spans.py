@@ -26,8 +26,10 @@ span                     what it covers
 =======================  ==================================================
 ``pim.call``             the whole call (attrs ``dtype``, ``basis``, ``rows``)
 ``frontend.cast``        ``PimType.cast`` of one argument
-``pack.to_planes``       ``PimType.to_planes`` of one argument, into the
-                         call's one buffer of input planes
+``pack.stack``           allocating the call's one buffer of every input
+                         plane (the planes' stack, filled by ``to_planes``)
+``pack.to_planes``       ``PimType.to_planes`` of one argument, into its
+                         rows of that buffer
 ``frontend.compile_cache``  the compile-cache lookup
 ``ir.compile``           a compile on a cache miss
 ``exec.run_schedule``    the executor: registration, padding, dispatch

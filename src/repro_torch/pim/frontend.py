@@ -255,8 +255,9 @@ class CompiledPimFunction:
             n = cast[0].shape[0]
             call.set("rows", n)
             # One buffer holds every input plane; to_planes writes each argument's rows.
-            planes = torch.empty((sum(t.width for t in self.in_types), num_words(n)),
-                                 dtype=torch.int32, device=device)
+            with spans.span("pack.stack"):
+                planes = torch.empty((sum(t.width for t in self.in_types), num_words(n)),
+                                     dtype=torch.int32, device=device)
             i = 0
             for t, x in zip(self.in_types, cast):
                 with spans.span("pack.to_planes"):

@@ -16,7 +16,7 @@ from repro_torch.kernels import pim_bitserial
 MAC = lambda a, b, c: a * b + c  # noqa: E731
 N = 1000
 # The spans of one warm f32 or int8 MAC call on the CPU, in the order they open.
-TREE = (["pim.call"] + ["frontend.cast"] * 3 + ["pack.to_planes"] * 3
+TREE = (["pim.call"] + ["frontend.cast"] * 3 + ["pack.stack"] + ["pack.to_planes"] * 3
         + ["frontend.compile_cache", "exec.run_schedule", "unpack.from_planes"])
 
 
@@ -201,8 +201,8 @@ def test_spans_share_the_profilers_host_clock():
     """Under ``torch.profiler``, every ``aten::`` op of the call lies inside
     ``pim.call``, and each op only packing issues (``pack_bits``' sum) inside
     its ``pack.to_planes`` span, with no offset applied.  Packing writes each
-    argument's planes into one buffer: no ``aten::stack`` outside the plain
-    executor's own."""
+    argument's planes into one buffer, allocated inside ``pack.stack``: no
+    ``aten::stack`` outside the plain executor's own."""
     fn = pim.compile(MAC, dtype=pim.int8)
     args = _args(pim.int8, n=4096)
     fn(*args, device="cpu")
@@ -218,6 +218,9 @@ def test_spans_share_the_profilers_host_clock():
     for p in packing:
         inside = [1 for s, e in sums if p.start_ns <= s and e <= p.end_ns]
         assert len(inside) == 8  # one a plane
+    stack = next(s for s in rec if s.name == "pack.stack")
+    assert sum(1 for name, s, e in events
+               if name == "aten::empty" and stack.start_ns <= s and e <= stack.end_ns) == 1
     executor = next(s for s in rec if s.name == "exec.run_schedule")
     assert not [1 for name, s, e in events if name == "aten::stack"
                 and not (executor.start_ns <= s and e <= executor.end_ns)]
