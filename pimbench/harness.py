@@ -1,4 +1,4 @@
-"""One run of one cell: set-up, the measured window, the traced window, the
+"""One run of one cell: set-up, the measured window, the traced windows, the
 check against the plain reference, and the metrics.
 
 Set-up makes the input pool from the seed on the device, compiles the
@@ -10,20 +10,25 @@ timed on the host clock.  ``check_per_size`` results of every size the
 window sends, drawn from the seed over the whole window
 (``traffic.Calls.keep_slot``), are copied into preallocated slots; once the
 window has closed they are compared with the NumPy reference.  A traced run
-then drives ``trace_calls`` more calls under ``torch.profiler`` for the
-per-layer metrics.
+then drives ``trace_calls`` more calls with the port's spans recorded, and
+as many again with the spans under ``torch.profiler``, for the per-layer
+metrics (``attribution.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
+import json
 import sys
 import time
 
 import numpy as np
 import torch
 
-from . import inputs, reference, spec, tracing
+from repro_torch.core import spans as port_spans
+
+from . import attribution, inputs, reference, spec, tracing
 from .roofline import peak_for
 from .traffic import Calls
 
@@ -45,7 +50,11 @@ class Run:
     setup_s: float
     peak_bytes: int | None  # allocated on the card during the window
     peak: dict | None  # this card's entry in peaks.json
-    trace: tracing.Trace | None = None
+    trace: tracing.Trace | None = None  # the profiled window
+    attribution: attribution.Attribution | None = None  # of the profiled window
+    spans_only: list[port_spans.Span] | None = None  # the port's spans, profiler off
+    profiled: list[port_spans.Span] | None = None  # the port's spans, profiler on
+    counters: dict[str, int] | None = None  # the port's counters' rise, spans-only window
 
 
 def _log(*parts) -> None:
@@ -202,11 +211,42 @@ def breakdown(trace: tracing.Trace) -> dict:
     """The ten device operations that took most time, and the idle time by
     what the host was doing; seconds over the traced window."""
     ops: dict[str, float] = {}
-    for name, s, e in trace.device:
+    for name, s, e, _ in trace.device:
         ops[name[:160]] = ops.get(name[:160], 0.0) + tracing.clip(s, e, trace.start, trace.end) / 1e9
     top = sorted(ops.items(), key=lambda kv: -kv[1])[:10]
     idle = sorted(tracing.idle_by_host(trace).items(), key=lambda kv: -kv[1])[:10]
     return {"device_ops": [[n, v] for n, v in top], "idle_gaps": [[n, v] for n, v in idle]}
+
+
+def traced_windows(session: Session, run: Run, first: int, seconds: float):
+    """``trace_calls`` calls from call ``first`` with the port's spans on,
+    then as many with the spans under the profiler, each window cut at
+    ``seconds``.  Sets ``run``'s trace (None if no profiled call completed),
+    attribution, both recordings and the port's counters' rise over the
+    spans-only window; returns the calls made and the failures.
+
+    The cyclic garbage collector is off in both windows: the span records
+    and the profiler's events outlive the young generations, and a full
+    collection of the process's heap, tens to hundreds of ms, would land in
+    whichever span it met and read as that layer's time."""
+    n = int(session.cell.traffic["trace_calls"])
+    gc.collect()
+    gc.disable()
+    try:
+        before = port_spans.counters()
+        s_calls, s_fail, run.spans_only = attribution.spans_window(session, first, n, seconds)
+        run.counters = {k: v - before.get(k, 0) for k, v in port_spans.counters().items()
+                        if v != before.get(k, 0)}
+        first += len(s_calls) + len(s_fail)
+        p_calls, p_fail, run.profiled, prof = attribution.profiled_window(session, first, n,
+                                                                          seconds)
+    finally:
+        gc.enable()
+    if p_calls:
+        run.trace = tracing.read_profile(prof, [tracing.CallSpan(*c) for c in p_calls],
+                                         run.profiled)
+        run.attribution = attribution.attribute(run.trace, run.profiled)
+    return len(s_calls) + len(s_fail) + len(p_calls) + len(p_fail), s_fail + p_fail
 
 
 def read_metrics(entries, run: Run) -> dict:
@@ -254,27 +294,19 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
     _log(f"Melem/s by {STRETCH_S:g}-s stretch: {stretches(spans, window_start)}")
     calls = [CallRecord(r, (e - s) / 1e9, (ret - s) / 1e9) for r, s, ret, e in spans]
 
-    traced = None
+    run = Run(cell=cell, calls=calls, window_s=window_s, setup_s=setup_s, peak_bytes=peak_bytes,
+              peak=peak_for(kind) if cuda else None)
     if trace:
-        from torch.profiler import ProfilerActivity, profile
-
-        recorded = tracing.Spans()
-        with tracing.layer_spans(recorded), profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t_spans, t_fail = session.drive(made, seconds, time.time_ns,
-                                            max_calls=int(cell.traffic["trace_calls"]))
+        t_made, t_fail = traced_windows(session, run, made, seconds)
+        made += t_made
         failures += t_fail
-        made += len(t_spans) + len(t_fail)
-        if t_spans:
-            traced = tracing.read_profile(
-                prof, [tracing.CallSpan(*x) for x in t_spans], recorded)
-            _log(f"traced {len(t_spans)} calls in {traced.window_s:.6f} s "
-                 f"({traced.window_s / len(t_spans) * 1e3:.4f} ms a call, untraced "
-                 f"{window_s / max(len(spans), 1) * 1e3:.4f}); profiler clock less the "
-                 f"harness's {traced.offset_ns} ns")
+        if run.trace is not None:
+            t = run.trace
+            _log(f"traced {len(t.calls)} calls in {t.window_s:.6f} s "
+                 f"({t.window_s / len(t.calls) * 1e3:.4f} ms a call, untraced "
+                 f"{window_s / max(len(spans), 1) * 1e3:.4f})")
 
     wrong, checked, rows_checked = check(session, keep)
-    run = Run(cell=cell, calls=calls, window_s=window_s, setup_s=setup_s, peak_bytes=peak_bytes,
-              peak=peak_for(kind) if cuda else None, trace=traced)
     checks = {"wrong_rows": {"value": wrong, "max": 0},
               "failed_calls": {"value": len(failures), "max": 0},
               "checked_calls": {"value": checked, "min": 1},
@@ -292,9 +324,12 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool, *, t_start: floa
         "device": {"platform": "gpu" if cuda else "cpu", "kind": kind, "count": 1,
                    "memory_peak_bytes": max(setup_peak, peak_bytes) if cuda else None},
     }
-    if traced is not None:
-        result["device"].update(busy_s=traced.busy_s(), window_s=traced.window_s)
-        result["breakdown"] = breakdown(traced)
+    if run.trace is not None:
+        result["device"].update(busy_s=run.trace.busy_s(), window_s=run.trace.window_s)
+        result["breakdown"] = breakdown(run.trace)
+        got = attribution.checks(run.attribution, run.trace)
+        result["attribution"] = {"holds": attribution.checks_hold(got), **got}
+        _log(f"the port's spans against the trace: {json.dumps(result['attribution'])}")
     result["checks"] = checks
     lines = [f"rows checked {rows_checked} in {checked} calls"]
     lines += [f"check {k} {v['value']} " + ("<= " + str(v["max"]) if "max" in v

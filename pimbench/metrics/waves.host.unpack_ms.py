@@ -1,0 +1,7 @@
+"""``host.unpack_ms`` in the cells of MAC waves, where the host sets the pace; read as
+``host.unpack_ms`` is, under a name of its own so that these cells keep bounds and
+metrics apart from the bulk cells'."""
+
+from pimbench import spec
+
+read = spec.reader("host.unpack_ms").read

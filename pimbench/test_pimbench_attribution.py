@@ -1,21 +1,26 @@
 """The port's spans joined to a profile by correlation id
-(``attribution.py``), on synthetic events, and the spans-only and profiled
-windows with ``spans_probe.py``'s readings on the CPU at tiny sizes."""
+(``attribution.py``), on synthetic events, and a traced run's readings of
+the port's spans on the CPU at tiny sizes."""
 
 from __future__ import annotations
 
 import dataclasses
+import re
 import time
 
 import pytest
 import torch
 
-from pimbench import attribution, harness, spans_probe, spec, tracing
-from pimbench.attribution import UNATTRIBUTED, Profile, SpanIndex
+from pimbench import attribution, harness, spec, tracing
+from pimbench.attribution import UNATTRIBUTED, SpanIndex
+from pimbench.harness import CallRecord, Run
 from pimbench.tracing import CallSpan, Trace
+from repro_torch.core import spans as port_spans
 from repro_torch.core.spans import Span
 
 SEED = 2**31 + 17
+READINGS = ("pack.in.device_ms", "pack.out.device_ms", "host.pack_ms", "host.unpack_ms",
+            "frontend.cache_hit_share")
 
 
 def _span(name, start, end, parent=None, call_id=0, **attrs):
@@ -37,14 +42,14 @@ DEVICE = [("pack_kernel", 20, 60, 1), ("stack_copy", 60, 70, 2), ("pad_kernel", 
           ("tail_kernel", 180, 185, 6), ("orphan", 185, 190, 99)]
 
 
-def _case(clock_ns: int = 0):
+def _case(clock_ns: int = 0) -> Trace:
     """The events as a profiler whose clock reads ``clock_ns`` ahead of the
-    spans' would record them, and the trace ``read_profile`` would make."""
-    profile = Profile(device=[(n, s + clock_ns, e + clock_ns, c) for n, s, e, c in DEVICE],
-                      host=[(n, s + clock_ns, e + clock_ns, c) for n, s, e, c in HOST])
-    trace = Trace(calls=[CallSpan(64, 0, 100, 200)], device=[(n, s, e) for n, s, e, _ in DEVICE],
-                  launches=6, spans=attribution.layer_spans(SPANS).items, offset_ns=clock_ns)
-    return profile, trace
+    spans' would record them, as ``read_profile`` keeps them."""
+    return Trace(calls=[CallSpan(64, 0, 100, 200)],
+                 device=[(n, s + clock_ns, e + clock_ns, c) for n, s, e, c in DEVICE],
+                 host=[(n, s + clock_ns, e + clock_ns, c) for n, s, e, c in HOST],
+                 launches=6, spans=[(s.name, s.start_ns, s.end_ns) for s in SPANS
+                                    if s.name != "pim.call"])
 
 
 def test_the_innermost_span_holding_an_interval():
@@ -58,8 +63,7 @@ def test_the_innermost_span_holding_an_interval():
 
 
 def test_each_kernel_goes_to_the_span_that_launched_it():
-    profile, trace = _case()
-    attr = attribution.attribute(profile, SPANS, trace)
+    attr = attribution.attribute(_case(), SPANS)
     assert attr.device_ns == {"pack.to_planes": 40, "pack.stack": 10, "exec.run_schedule": 5,
                               "exec.launch": 75, "unpack.from_planes": 30, "pim.call": 5,
                               UNATTRIBUTED: 5}
@@ -72,8 +76,8 @@ def test_each_kernel_goes_to_the_span_that_launched_it():
 
 
 def test_the_checks_hold_and_the_unattributed_rest_is_counted():
-    profile, trace = _case()
-    got = attribution.checks(attribution.attribute(profile, SPANS, trace), trace)
+    trace = _case()
+    got = attribution.checks(attribution.attribute(trace, SPANS), trace)
     # The rest: the executor's padding, the call's own launch and the orphan.
     assert got["pack_parts_ms"]["rest"] == pytest.approx(15e-6)
     assert got["pack_parts_ms"]["value"] == pytest.approx(got["pack_parts_ms"]["of"])
@@ -86,22 +90,16 @@ def test_the_checks_hold_and_the_unattributed_rest_is_counted():
 
 
 def test_a_clock_that_differs_leaves_the_launches_outside_their_spans():
-    profile, trace = _case(clock_ns=1000)
-    matched = attribution.attribute(profile, SPANS, trace, host_offset_ns=1000)
-    assert matched.device_ns == attribution.attribute(*_case()[:1], SPANS, _case()[1]).device_ns
-    missed = attribution.attribute(profile, SPANS, trace)
-    assert missed.device_ns == {UNATTRIBUTED: 170}  # every event, clipped to the window
-    assert (missed.executor_in_launch, missed.executor_kernels) == (0, 1)
-    assert missed.launches == {UNATTRIBUTED: 6}
-
-
-def test_idle_time_in_the_synchronise_is_named_by_what_it_follows():
-    profile, trace = _case()
-    # Idle [190, 200) lies in the synchronise [100, 200) and follows the orphan.
-    assert attribution.sync_idle(profile, SPANS, trace) == {
-        f"{UNATTRIBUTED} | orphan": [pytest.approx(10e-6), 1]}
-    moved = attribution.at_offset(trace, 5)
-    assert moved.offset_ns == 5 and moved.device[0] == ("pack_kernel", 15, 55)
+    """Why no offset is applied: the spans and the profiler's host events
+    share a clock, and one that read otherwise would leave every launch
+    outside the span that made it."""
+    missed = attribution.attribute(_case(clock_ns=1000), SPANS)
+    assert missed.device_ns == {UNATTRIBUTED: 0}  # every event, and none in the window
+    assert (missed.executor_in_launch, missed.executor_kernels) == (0, 0)
+    assert missed.launches == {}
+    ahead = attribution.attribute(_case(clock_ns=30), SPANS)
+    assert ahead.executor_ns == {"unpack.from_planes": 75}
+    assert (ahead.executor_in_launch, ahead.executor_kernels) == (0, 1)
 
 
 def test_host_times_and_the_cache_hit_share():
@@ -117,8 +115,7 @@ def test_host_times_and_the_cache_hit_share():
 
 
 def test_the_idle_gaps_keep_their_labels_from_the_ports_spans():
-    _, trace = _case()
-    idle = tracing.idle_by_host(trace)
+    idle = tracing.idle_by_host(_case())
     assert "pim.call" not in idle
     # Idle [0, 20): frontend [0, 2) and [5, 6), the cast [2, 5), packing [6, 20);
     # [190, 200): the synchronise.
@@ -149,20 +146,60 @@ def test_the_spans_only_window_on_the_cpu(tiny_session):
     assert attribution.cache_hit_share(recorded) == 100.0
 
 
-def test_the_probe_reads_every_window_on_the_cpu(tiny_session):
-    untraced = spans_probe.call_stats(tiny_session.drive(0, 60, time.time_ns,
-                                                         max_calls=3)[0])
-    out = spans_probe.traced(tiny_session, 3, untraced)
-    assert out["spans_only"]["calls"] == out["profiled"]["calls"] == 3
-    readings = out["raw"]["readings"]
-    assert readings["frontend.cache_hit_share"] == 100.0
-    assert readings["host.pack_ms"] > 0 and readings["host.unpack_ms"] > 0
-    assert readings["pack.in.device_ms"] == 0  # no device on the CPU
-    costs = spans_probe.site_costs(tiny_session)
-    # pim.call, 3 casts, 3 packings, the stack, the cache, the executor, 1 unpacking;
-    # the compile cache's hit (a card run adds the executor's launch count).
-    assert costs["sites_a_call"] == {"span": 11, "count": 1}
-    assert 0 < costs["span_site_ns"] < costs["span_site_on_ns"]
-    assert 0 < costs["off_ns_a_call"] < costs["on_ns_a_call"]
-    timed = spans_probe.loop(tiny_session, 4, blocks=2)
-    assert timed["rows"] == 40 and len(timed["off_ns"]) == len(timed["on_ns"]) == 1
+def _table_spans() -> set[str]:
+    """The span names in the table of ``repro_torch.core.spans``'s docstring."""
+    return set(re.findall(r"^``([a-z_.]+)``  ", port_spans.__doc__, flags=re.M))
+
+
+# Spans of the table that a warm call on the CPU does not pass: a compile or
+# a build on a miss, and the card's kernel launches.
+NOT_ON_A_WARM_CPU_CALL = {"ir.compile", "exec.build", "exec.launch"}
+
+
+@pytest.mark.parametrize("cell", ["memristive.resnet50_f32", "memristive.int8_bulk"])
+def test_a_traced_run_reads_the_ports_spans_on_the_cpu(monkeypatch, cell):
+    """A traced run at the cell's CPU sizes reads the five span readings
+    (on the CPU the device readings find no device and read nothing), the
+    attribution's checks hold, the run carries the port's counters, and
+    the spans recorded are the sites the port's table names."""
+    runs = []
+    read_metrics = harness.read_metrics
+    monkeypatch.setattr(harness, "read_metrics",
+                        lambda entries, run: runs.append(run) or read_metrics(entries, run))
+    traffic = {"rows": spec.load_cell(cell).traffic["cpu_rows"], "trace_calls": 4}
+    result, _ = harness.run_cell(cell, SEED, 0.4, True, t_start=time.perf_counter(),
+                                 device="cpu", traffic=traffic)
+    assert result["correct"] and list(result)[-1] == "checks"
+    twin = "waves." if "resnet50" in cell else ""
+    metrics = result["metrics"]
+    assert metrics[f"{twin}frontend.cache_hit_share"]["value"] == 100.0
+    assert metrics[f"{twin}host.pack_ms"]["value"] > 0
+    assert metrics[f"{twin}host.unpack_ms"]["value"] > 0
+    assert f"{twin}pack.in.device_ms" not in metrics
+    assert f"{twin}pack.out.device_ms" not in metrics
+    assert result["attribution"]["holds"]
+    (run,) = runs
+    calls = sum(s.name == "pim.call" for s in run.spans_only)
+    assert calls >= 1 and run.counters["ir.compile.hits"] == calls
+    table = _table_spans()
+    assert {"pim.call", "pack.to_planes", "unpack.from_planes"} <= table
+    for recorded in (run.spans_only, run.profiled):
+        assert {s.name for s in recorded} == table - NOT_ON_A_WARM_CPU_CALL
+
+
+def test_the_readers_over_a_made_up_run():
+    """The ten readers over the synthetic call: packing's sides by the span
+    that launched them, host times over the spans-only window, and the
+    cache-hit share over both windows."""
+    trace = _case()
+    run = Run(cell=spec.load_cell("memristive.f32_bulk"), calls=[CallRecord(64, 2e-7, 1e-7)],
+              window_s=2e-7, setup_s=1.0, peak_bytes=None, peak=None, trace=trace,
+              attribution=attribution.attribute(trace, SPANS), spans_only=SPANS,
+              profiled=SPANS, counters={})
+    want = {"pack.in.device_ms": 50e-6, "pack.out.device_ms": 30e-6, "host.pack_ms": 31e-6,
+            "host.unpack_ms": 29e-6, "frontend.cache_hit_share": 100.0}
+    for name in READINGS:
+        assert spec.reader(name).read(run) == pytest.approx(want[name])
+        assert spec.reader(f"waves.{name}").read(run) == pytest.approx(want[name])
+    run.attribution = None
+    assert all(spec.reader(name).read(run) is None for name in READINGS)

@@ -47,7 +47,8 @@ def test_words_need_no_padding():
 def _run(cell: str, device, calls) -> Run:
     """A run whose measured window repeats the traced calls' rows over the
     traced window's length."""
-    trace = Trace(calls=calls, device=device, launches=10 * len(calls), spans=[])
+    trace = Trace(calls=calls, device=[(*d, 0) for d in device], host=[],
+                  launches=10 * len(calls), spans=[])
     return Run(cell=spec.load_cell(cell), calls=[CallRecord(c.rows, 0.05, 0.001) for c in calls],
                window_s=trace.window_s, setup_s=1.0, peak_bytes=None, peak=H100, trace=trace)
 

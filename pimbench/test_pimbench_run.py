@@ -18,18 +18,14 @@ import torch
 from pimbench import harness, run, spec
 
 CELLS = [w["name"] for w in spec.load_json(spec.ROOT / "BENCHMARK.json")["workloads"]]
-# Tiny tables in the cells' own shape: one size for the bulk cells, seven
-# for the ResNet-50 waves.
-TINY = {"f32_bulk": [[300, 1]], "int8_bulk": [[1000, 1]],
-        "resnet50_f32": [[40, 2048], [100, 18944], [130, 19456], [200, 8960], [260, 4352],
-                         [300, 768], [520, 403]]}
 CHECK_ALL = {"check_per_size": 2}
 SEED = 2**31 + 17
 
 
-def cpu_run(cell: str, seconds: float = 0.4, **kw) -> dict:
-    traffic = {"rows": TINY[spec.load_cell(cell).traffic["name"]], **CHECK_ALL}
-    result, lines = harness.run_cell(cell, SEED, seconds, False, t_start=time.perf_counter(),
+def cpu_run(cell: str, seconds: float = 0.4, trace: bool = False, **kw) -> dict:
+    """A run of ``cell`` at its traffic file's ``cpu_rows``."""
+    traffic = {"rows": spec.load_cell(cell).traffic["cpu_rows"], **CHECK_ALL}
+    result, lines = harness.run_cell(cell, SEED, seconds, trace, t_start=time.perf_counter(),
                                      device="cpu", traffic=traffic, **kw)
     assert lines[-len(result["checks"]):] == [f"check {k} {v['value']} " + (f"<= {v['max']}" if "max" in v
                                                           else f">= {v['min']}")

@@ -116,6 +116,18 @@ def test_cell_files_load(cell):
     assert c.end_to_end and c.per_layer
 
 
+@pytest.mark.parametrize("traffic", sorted(p.stem for p in (spec.PKG / "traffic").glob("*.json")))
+def test_every_traffic_file_has_its_cpu_sizes(traffic):
+    """``cpu_rows``: the table in the traffic's own shape, the same weights
+    in the same order, distinct sizes of at most 1024 rows."""
+    body = spec.load_json(spec.PKG / "traffic" / f"{traffic}.json")
+    rows, cpu = body["rows"], body["cpu_rows"]
+    assert [w for _, w in cpu] == [w for _, w in rows]
+    sizes = [r for r, _ in cpu]
+    assert all(isinstance(r, int) and 1 <= r <= 1024 for r in sizes)
+    assert len(set(sizes)) == len(sizes)
+
+
 @pytest.mark.parametrize("metric", METRICS)
 def test_every_metric_has_a_reader(metric):
     assert callable(spec.reader(metric).read)

@@ -1,39 +1,26 @@
 """The traced window: the device's activity from ``torch.profiler`` and the
-host's spans from the harness's own clock, on one timeline (Unix ns).
+host's spans from the port itself, on one timeline (Unix ns).
 
 The profiler records device activity alone (kernels, copies and sets, and
 the runtime calls that launch them), so host work is not slowed by tracing
-every operator.  The host's spans come from the harness: each call's start,
-return and synchronised end, and, inside the call, the layers of the port
-the call enters (:data:`LAYER_SPANS`), timed by wrapping those entry points
-for the traced window only.  The device's idle gaps are then named by what
-the host was doing meanwhile.
+every operator.  The host's spans are the harness's (each call's start,
+return and synchronised end) and the port's own (``repro_torch.core.spans``,
+recorded while the window runs).  Both the port's spans and the profiler's
+host events are stamped on ``time.time_ns()``, so the two are put on one
+timeline with no offset.  The device's idle gaps are then named by what the
+host was doing meanwhile.
 """
 
 from __future__ import annotations
 
-import bisect
-import contextlib
 import dataclasses
-import functools
-import importlib
 import re
-import statistics
-import time
 
-# (module, class, method, span name): the port's layers a call enters.
-LAYER_SPANS = (
-    ("repro_torch.core.bitplanes", "PimType", "cast", "frontend.cast"),
-    ("repro_torch.core.bitplanes", "PimType", "to_planes", "pack.to_planes"),
-    ("repro_torch.pim.frontend", "CompiledPimFunction", "compiled", "frontend.compile_cache"),
-    ("repro_torch.kernels.pim_bitserial", "CudaBackend", "run", "exec.run_schedule"),
-    ("repro_torch.core.bitplanes", "PimType", "from_planes", "unpack.from_planes"),
-)
 # Host calls that put work on the device: launches, graph launches, copies, sets.
 LAUNCH_CALL = re.compile(r"^cu(da)?(LaunchKernel|GraphLaunch|Memcpy|Memset)")
 EXECUTOR_KERNEL = re.compile(r"bitserial")
-# The host call each of the harness's synchronises makes.
-SYNC_CALL = "cudaDeviceSynchronize"
+# The port's span of a whole call: its self time is the idle gaps' ``frontend``.
+CALL_SPAN = "pim.call"
 
 
 @dataclasses.dataclass
@@ -46,13 +33,15 @@ class CallSpan:
 
 @dataclasses.dataclass
 class Trace:
-    """What one traced window holds; times in Unix ns."""
+    """What one traced window holds; times in Unix ns.  An event is
+    ``(name, start, end, correlation id)``: a device event carries the id of
+    the runtime call that launched it."""
 
     calls: list[CallSpan]
-    device: list[tuple[str, int, int]]  # (name, start, end)
-    launches: int  # host calls that launch device work
-    spans: list[tuple[str, int, int]]  # the port's layers, host side
-    offset_ns: int = 0  # the profiler's clock less the harness's
+    device: list[tuple[str, int, int, int]]
+    host: list[tuple[str, int, int, int]]  # the runtime calls
+    launches: int  # host calls in the window that launch device work
+    spans: list[tuple[str, int, int]]  # the port's closed spans but the call's own
 
     @property
     def start(self) -> int:
@@ -69,16 +58,16 @@ class Trace:
     def device_s(self, name_filter=None) -> float:
         """Seconds of device activity (summed durations) in the window,
         of the events whose name ``name_filter`` accepts."""
-        return sum(clip(s, e, self.start, self.end) for n, s, e in self.device
+        return sum(clip(s, e, self.start, self.end) for n, s, e, _ in self.device
                    if name_filter is None or name_filter(n)) / 1e9
 
     def busy_s(self) -> float:
         """Seconds in which any device activity ran (the union)."""
-        merged = merge([(s, e) for _, s, e in self.device])
+        merged = merge([(s, e) for _, s, e, _ in self.device])
         return sum(clip(s, e, self.start, self.end) for s, e in merged) / 1e9
 
     def idle_gaps(self) -> list[tuple[int, int]]:
-        return gaps(merge([(s, e) for _, s, e in self.device]), self.start, self.end)
+        return gaps(merge([(s, e) for _, s, e, _ in self.device]), self.start, self.end)
 
 
 def clip(s: int, e: int, lo: int, hi: int) -> int:
@@ -112,8 +101,8 @@ def gaps(merged, lo: int, hi: int) -> list[tuple[int, int]]:
 
 def host_segments(calls: list[CallSpan], spans) -> list[tuple[int, int, str]]:
     """The window cut into ``(start, end, what the host did)``: inside a
-    call the innermost layer span, else ``frontend``; from a call's return to
-    its end ``sync``; between calls ``harness``."""
+    call the innermost span, else ``frontend``; from a call's return to its
+    end ``sync``; between calls ``harness``."""
     spans = sorted(spans, key=lambda x: x[1])
     out, j = [], 0
     for k, c in enumerate(calls):
@@ -151,44 +140,6 @@ def idle_by_host(trace: Trace) -> dict[str, float]:
     return out
 
 
-class Spans:
-    """Host spans recorded by :func:`layer_spans`."""
-
-    def __init__(self):
-        self.items: list[tuple[str, int, int]] = []
-
-
-def _timed(fn, name: str, spans: Spans):
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
-        start = time.time_ns()
-        try:
-            return fn(*args, **kwargs)
-        finally:
-            spans.items.append((name, start, time.time_ns()))
-    return wrapper
-
-
-@contextlib.contextmanager
-def layer_spans(spans: Spans):
-    """Time the port's layer entry points into ``spans`` while inside; an
-    entry point the port no longer has is left out."""
-    saved = []
-    try:
-        for module, cls_name, method, name in LAYER_SPANS:
-            try:
-                cls = getattr(importlib.import_module(module), cls_name)
-                fn = cls.__dict__[method]
-            except (ImportError, AttributeError, KeyError):
-                continue
-            saved.append((cls, method, fn))
-            setattr(cls, method, _timed(fn, name, spans))
-        yield spans
-    finally:
-        for cls, method, fn in reversed(saved):
-            setattr(cls, method, fn)
-
-
 def _ns(event, which: str) -> int:
     getter = getattr(event, f"{which}_ns", None)
     if getter is not None:
@@ -196,36 +147,19 @@ def _ns(event, which: str) -> int:
     return int(getattr(event, f"{which}_us")() * 1000)
 
 
-def clock_offset(call_ends: list[int], sync_ends: list[int]) -> int:
-    """The profiler's clock less the harness's: the median, over the calls,
-    of the gap from a call's end to the end of its device synchronise (each
-    call ends in one), matched in order, or else the nearest; 0 without."""
-    if not sync_ends:
-        return 0
-    sync_ends = sorted(sync_ends)
-    if len(sync_ends) == len(call_ends):
-        return int(statistics.median(s - e for s, e in zip(sync_ends, call_ends)))
-    diffs = []
-    for end in call_ends:
-        k = bisect.bisect_left(sync_ends, end)
-        near = [sync_ends[j] for j in (k - 1, k) if 0 <= j < len(sync_ends)]
-        diffs.append(min(near, key=lambda t: abs(t - end)) - end)
-    return int(statistics.median(diffs))
-
-
-def read_profile(prof, calls: list[CallSpan], spans: Spans) -> Trace:
-    """The device events and launch calls of a finished ``torch.profiler``
-    run, moved onto the harness's timeline by :func:`clock_offset`."""
+def read_profile(prof, calls: list[CallSpan], recorded) -> Trace:
+    """The device events and host runtime calls of a finished
+    ``torch.profiler`` run, with their correlation ids, beside the port's
+    spans ``recorded`` in the same window."""
     from torch.autograd import DeviceType
 
     device, host = [], []
     for e in prof.profiler.kineto_results.events():
         start = _ns(e, "start")
-        item = (e.name(), start, start + _ns(e, "duration"))
+        item = (e.name(), start, start + _ns(e, "duration"), e.correlation_id())
         (device if e.device_type() == DeviceType.CUDA else host).append(item)
-    offset = clock_offset([c.end for c in calls],
-                          [end for name, _, end in host if name == SYNC_CALL])
-    lo, hi = calls[0].start + offset, calls[-1].end + offset
-    launches = sum(1 for name, start, _ in host if LAUNCH_CALL.match(name) and lo <= start <= hi)
-    return Trace(calls=calls, device=[(n, s - offset, e - offset) for n, s, e in device],
-                 launches=launches, spans=list(spans.items), offset_ns=offset)
+    lo, hi = calls[0].start, calls[-1].end
+    launches = sum(1 for name, start, _, _ in host if LAUNCH_CALL.match(name) and lo <= start <= hi)
+    spans = [(s.name, s.start_ns, s.end_ns) for s in recorded
+             if s.name != CALL_SPAN and s.end_ns is not None]
+    return Trace(calls=calls, device=device, host=host, launches=launches, spans=spans)

@@ -6,7 +6,9 @@ the entry furthest behind its share), so every stretch of calls holds each
 size in its share to within two calls; the seed picks where in that period
 the run starts.  Every seed thus sends the same mix of work in a window,
 and a run's spread is the system's, not the draw's.  Call ``i`` takes the
-first rows of pool set ``i % pool_sets``.
+first rows of pool set ``i % pool_sets``.  A traffic file's ``cpu_rows`` is
+the same table in the cell's own shape and weights, with sizes of at most
+1024 rows, for the CPU tests; a run on the card never reads it.
 
 The correctness check keeps ``check_per_size`` results of every size the
 window sends, each a uniform draw over all the window's calls of that size
