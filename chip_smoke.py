@@ -14,7 +14,13 @@ bit-serial kernel against its plain PyTorch version word for word
 (including the 13-segment straight-line f32 MAC) and times each with CUDA
 events beside its bound, and does the same for the packing kernels at
 ``PACK_ROWS`` rows (the benchmark's bulk call), f32 and int8, each beside
-its bytes bound and the plain path's time.  The matmul phase drives the paper's Fig 5
+its bytes bound and the plain path's time.  The same kernel-against-plain
+loop holds the loop kernel on the nine-tap program of ``repro_torch.pim.conv``
+(19 arguments, one warp a block) at VGG-16 D's smallest and largest calls
+(``CONV_ROWS``) on both bases; then the conv phase runs one input channel
+through ``conv3x3``, equal to ``vgg_reference.conv3x3_chain`` bit for bit,
+with its launches counted from zero (one loop kernel, 19 packs, one
+unpack); the kernels line carries the conv cases too.  The matmul phase drives the paper's Fig 5
 benchmark (``benchmarks/torch_fig5_matmul.run()``) and ``ops.pim_matmul_op``
 at every Fig 5 size in float32 and bfloat16 (each operand 2^26 elements)
 and at ragged shapes; it requires the variant ``pim_matmul.plan`` names to
@@ -134,7 +140,10 @@ from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.launch.serve import ServeEngine  # noqa: E402
 from repro_torch.parallel import compression  # noqa: E402
 from repro_torch.runtime.fault_tolerance import FTConfig, FaultInjector  # noqa: E402
+from repro_torch.core import spans  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
+from repro_torch.models import vgg_reference  # noqa: E402
+from repro_torch.pim import conv  # noqa: E402
 from repro_torch.models import transformer as lm  # noqa: E402
 
 N = 1 << 24
@@ -222,6 +231,14 @@ COMPRESS_BYTES = 16
 DRYRUN_CELLS = [("stablelm-3b", "train_4k"), ("stablelm-3b", "decode_32k"),
                 ("gemma2-27b", "decode_32k")]
 DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun_smoke")
+
+# The nine-tap program of ``repro_torch.pim.conv`` (19 float32 arguments;
+# 672 columns on memristive, so one 32-thread block an SM) on the loop
+# kernel at VGG-16 D's smallest and largest calls at batch 8, 224² (the
+# last group's 8·14²·512 rows, the first group's 8·224²·64); then one input
+# channel of its first layer through ``conv3x3``: batch, side, Cout.
+CONV_ROWS = (802_816, 25_690_112)
+CONV_LAYER = (8, 224, 64)
 
 F32_SPECIALS = np.array(
     [0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45, 1.1754942e-38,
@@ -347,6 +364,49 @@ def packing_phase(dev: torch.device) -> list[dict]:
         torch.cuda.empty_cache()
     say(f"packing: launches {dict(pim_bitplanes.LAUNCHES)}")
     return rows
+
+
+def conv_planes(n: int, dev: torch.device) -> torch.Tensor:
+    """The nine-tap program's 19 float32 arguments of ``n`` rows over a
+    wide exponent range, with the specials at fixed positions, packed."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + n)
+    specials = torch.from_numpy(F32_SPECIALS).to(dev)
+    args = []
+    for k in range(len(conv.PROGRAM.in_types)):
+        scale = torch.randint(-40, 40, (n,), generator=gen, device=dev).float().exp2()
+        v = torch.randn(n, generator=gen, device=dev) * scale
+        v[k + torch.arange(len(specials), device=dev) * (n // 16)] = specials.roll(k)
+        args.append(v)
+    return stacked_planes(conv.PROGRAM, args, dev)
+
+
+def conv_phase(dev: torch.device) -> dict:
+    """One input channel of a CONV_LAYER layer through ``conv3x3`` on
+    memristive, bit for bit against ``vgg_reference.conv3x3_chain``, its
+    launches counted from zero: one loop launch, 19 packs, one unpack."""
+    batch, side, cout = CONV_LAYER
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((batch, 1, side, side), generator=gen, device=dev)
+    w = torch.randn((cout, 1, 3, 3), generator=gen, device=dev) * (2 / 9) ** 0.5
+    b = torch.randn(cout, generator=gen, device=dev)
+    conv.conv3x3(x, w, b, basis="memristive")  # the gate table's upload
+    torch.cuda.synchronize()
+    pim_bitserial.reset_launches()
+    pim_bitplanes.reset_launches()
+    spans.reset_counters("conv.")
+    got = conv.conv3x3(x, w, b, basis="memristive")
+    torch.cuda.synchronize()
+    launches = {**dict(pim_bitserial.LAUNCHES), **dict(pim_bitplanes.LAUNCHES),
+                **spans.counters("conv.")}
+    differing = vgg_reference.differing(got, vgg_reference.conv3x3_chain(x, w, b))
+    say(f"conv: conv3x3 of one channel into {cout} at batch {batch}, {side}² "
+        f"({got.numel()} rows) on memristive: {differing} elements differ from "
+        f"conv3x3_chain; launches {launches}")
+    require(differing == 0, f"conv3x3 differs from conv3x3_chain in {differing} elements")
+    require(launches == {"bitserial_loop": 1, "bitserial_unrolled": 0, "bitplane_pack": 19,
+                         "bitplane_unpack": 1, "conv.waves": 1},
+            f"conv3x3's launches for one channel: {launches}")
+    return launches
 
 
 def matmul_bound(shape, dtype, fp32_flops: float) -> tuple[float, str]:
@@ -1600,10 +1660,13 @@ def main() -> int:
     fixed_add = ops._fn("add", "fixed", 32)
     f32_mem, f32_dram = f32_mac.compiled("memristive"), f32_mac.compiled("dram")
     int8_c, add_c = int8_mac.compiled(), fixed_add.compiled()
-    for c in (f32_mem, f32_dram, int8_c, add_c):
+    conv_c = {basis: conv.PROGRAM.compiled(basis) for basis in ("memristive", "dram")}
+    for c in (f32_mem, f32_dram, int8_c, add_c, *conv_c.values()):
         pim_bitserial.register_compiled(c)
     require(pim_bitserial.resolve_mode(f32_mem) == "loop"
             and pim_bitserial.resolve_mode(f32_dram) == "loop", "f32 MAC auto mode")
+    require(all(pim_bitserial.resolve_mode(c) == "loop" for c in conv_c.values()),
+            "nine-tap auto mode")
     require(pim_bitserial.resolve_mode(int8_c) == "unrolled"
             and pim_bitserial.resolve_mode(add_c) == "unrolled", "int8 MAC auto mode")
     t0 = time.perf_counter()
@@ -1665,7 +1728,6 @@ def main() -> int:
     say(f"main path: pim_fixed_add nbits=32: {N} elements equal to numpy int32 a+b")
 
     # ------------------------------------------- kernels vs plain versions
-    words = N // 32
     f32_planes = stacked_planes(f32_mac, (x, y, z), dev)
     int8_planes = stacked_planes(int8_mac, (a8, b8, c8), dev)
     add_planes = stacked_planes(fixed_add, (a32, b32), dev)
@@ -1677,6 +1739,9 @@ def main() -> int:
         ("f32 MAC memristive, forced straight-line", "bitserial_unrolled", f32_mem,
          f32_planes, "unrolled"),
     ]
+    conv_in = {n: conv_planes(n, dev) for n in CONV_ROWS}
+    cases += [(f"nine-tap conv {basis}, {n} rows", "bitserial_loop", c, planes, "loop")
+              for basis, c in conv_c.items() for n, planes in conv_in.items()]
     results = []
     for label, kernel, compiled, planes, mode in cases:
         key = compiled.key
@@ -1694,11 +1759,17 @@ def main() -> int:
         n_seg = len(segments) if mode == "unrolled" else 1
         ms = cuda_ms(run, TIMED_LAUNCHES)
         plain_ms = cuda_ms(plain, PLAIN_REPS)
+        words = planes.shape[1]
         bms, by = bound_ms(compiled, words, int32_ops_per_s)
         earlier = (f"; {PERF_MD_FIRST_LOOP}: {PERF_MD_FIRST_LOOP_MS[label]} ms"
-                   if kernel == "bitserial_loop" else "")
+                   if label in PERF_MD_FIRST_LOOP_MS else "")
+        block = ""
+        if mode == "loop":  # one block an SM: its state fills the shared memory
+            block_words = pim_bitserial.words_per_block(compiled.num_cols)
+            block = (f", {block_words} words a block ("
+                     f"{block_words / pim_bitserial.LOOP_WORDS_PER_THREAD / 32:g} warps)")
         say(f"kernel {kernel} on {label}: {compiled.num_gates} gates, {compiled.num_cols} "
-            f"cols, {n_seg} launch(es)/call, W={words} words: equal to plain "
+            f"cols{block}, {n_seg} launch(es)/call, W={words} words: equal to plain "
             f"(max_abs_err {err}); {ms:.4f} ms/call, bound {bms:.4f} ms ({by}), "
             f"plain {plain_ms:.2f} ms{earlier}")
         results.append(dict(label=label, kernel=kernel, err=err, ms=ms,
@@ -1707,6 +1778,9 @@ def main() -> int:
     native_ms = cuda_ms(lambda: xd * yd + zd, TIMED_LAUNCHES)
     say(f"yardstick (the paper's GPU side, not a version of either kernel): "
         f"native f32 x*y then +z on {N} unpacked elements: {native_ms:.4f} ms")
+    del cases, conv_in, planes, out, ref
+    torch.cuda.empty_cache()
+    conv_launches = conv_phase(dev)
     pack_results = packing_phase(dev)
 
     mm_launches, mm_results = matmul_phase(dev, fp32_flops)
@@ -1758,6 +1832,18 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None, "case": r["label"],
             **kernel_resources(lib, symbol),
+        })
+    loop_source, loop_replaces, loop_lib, loop_symbol, _ = sources["bitserial_loop"]
+    for r in results:
+        if not r["label"].startswith("nine-tap conv"):
+            continue
+        line.append({
+            "name": "bitserial_loop", "route": "cuda", "source": loop_source,
+            "replaces": loop_replaces, "launches": conv_launches["bitserial_loop"],
+            "pack_launches": {k: conv_launches[k] for k in ("bitplane_pack", "bitplane_unpack")},
+            "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
+            "case": r["label"], **kernel_resources(loop_lib, loop_symbol),
         })
     pack_lib = _build.library_path(*pim_bitplanes.build_job())
     for r in pack_results:

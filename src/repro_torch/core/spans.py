@@ -45,6 +45,14 @@ Counters: ``ir.compile.hits`` and ``ir.compile.misses`` (read by
 ``exec.launches.mm_<variant>``, ``pack.launches.bitplane_pack`` and
 ``pack.launches.bitplane_unpack`` (read by each module's ``LAUNCHES``).
 A cache miss of the executor is its ``exec.build`` span, not a counter.
+
+The 3×3 convolution lowered onto PIM rows (``repro_torch.pim.conv``) wraps
+main-path calls in spans of its own, and counts them:
+
+* ``conv.layer``: one layer, ``Cin`` calls (attrs ``cin``, ``cout``,
+  ``hw``, ``basis``);
+* ``conv.gather``: building one input channel's 19 arguments;
+* counter ``conv.waves``: the calls the lowering made.
 """
 
 from __future__ import annotations

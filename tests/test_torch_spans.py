@@ -1,5 +1,6 @@
 """The port's span and counter registry (``repro_torch.core.spans``): nothing
-recorded while off, the span tree of one ``pim.compile`` call, the rebuilds
+recorded while off, the span tree of one ``pim.compile`` call and of one
+``conv3x3`` layer, the rebuilds
 a rebound key records, the executors' launch counters and the compile
 cache's counters read through their old names, and spans on the profiler's
 host clock."""
@@ -15,9 +16,21 @@ from repro_torch.kernels import pim_bitserial
 
 MAC = lambda a, b, c: a * b + c  # noqa: E731
 N = 1000
+
+
+def call_tree(n_args: int) -> list[str]:
+    """The spans of one warm call of an ``n_args``-argument program on the
+    CPU, in the order they open."""
+    return (["pim.call"] + ["frontend.cast"] * n_args + ["pack.stack"]
+            + ["pack.to_planes"] * n_args
+            + ["frontend.compile_cache", "exec.run_schedule", "unpack.from_planes"])
+
+
 # The spans of one warm f32 or int8 MAC call on the CPU, in the order they open.
-TREE = (["pim.call"] + ["frontend.cast"] * 3 + ["pack.stack"] + ["pack.to_planes"] * 3
-        + ["frontend.compile_cache", "exec.run_schedule", "unpack.from_planes"])
+TREE = call_tree(3)
+# One warm conv3x3 layer of two input channels: each channel's gather, then
+# its call of the 19-argument nine-tap program.
+CONV_TREE = ["conv.layer"] + (["conv.gather"] + call_tree(19)) * 2
 
 
 def _args(dtype, n=N, seed=0):
@@ -76,6 +89,26 @@ def test_call_records_the_span_tree(macs, dtype):
         assert call.start_ns <= s.start_ns <= s.end_ns <= call.end_ns
     # Siblings follow one another.
     assert all(a.end_ns <= b.start_ns for a, b in zip(rec[1:], rec[2:]))
+
+
+def test_conv_layer_records_its_span_tree():
+    """A conv3x3 layer opens ``conv.layer`` around one ``conv.gather`` and
+    one ``pim.call`` an input channel, all of one call id, and counts its
+    calls in ``conv.waves``."""
+    from repro_torch.pim.conv import conv3x3
+
+    g = torch.Generator().manual_seed(0)
+    x, w, b = (torch.randn(s, generator=g) for s in ((1, 2, 4, 4), (3, 2, 3, 3), (3,)))
+    conv3x3(x, w, b)  # compiles the nine-tap program
+    before = spans.counters("conv.")
+    with spans.recording() as rec:
+        conv3x3(x, w, b, basis="memristive")
+    assert [s.name for s in rec] == CONV_TREE
+    layer = rec[0]
+    assert layer.attrs == {"cin": 2, "cout": 3, "hw": (4, 4), "basis": "memristive"}
+    assert {s.call_id for s in rec} == {layer.call_id}
+    assert [s.parent for s in rec if s.name in ("conv.gather", "pim.call")] == [0] * 4
+    assert _moved(before, spans.counters("conv.")) == {"conv.waves": 2}
 
 
 def test_second_call_hits_the_compile_cache():
