@@ -74,8 +74,8 @@ def switch_source() -> str:
     return src
 
 
-def table_of(compiled, group: int) -> torch.Tensor:
-    """The packed gate table with groups of at most ``group`` gates."""
+def table_of(compiled, group: int) -> pb.LoopTable:
+    """The loop kernel's table with groups of at most ``group`` gates."""
     shipped = pb.GATE_GROUP
     pb.GATE_GROUP = group
     try:
@@ -86,28 +86,19 @@ def table_of(compiled, group: int) -> torch.Tensor:
 
 def load(name: str, source: str) -> ctypes.CDLL:
     lib = _build.load(name, source)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bitserial_loop_launch.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_longlong, i, p]
-    lib.bitserial_loop_launch.restype = ctypes.c_int
+    pb.bind_loop(lib)
     return lib
 
 
 def launcher(lib, compiled, table, planes):
     """A function that runs ``compiled`` over ``planes`` with ``lib``'s
     kernel and ``table``, as ``pim_bitserial._launch_loop`` does."""
-    dev = planes.device
-    table = table.to(dev)
-    in_slots, out_slots = (torch.tensor(s, dtype=torch.int32, device=dev)
-                           for s in (compiled.input_slots, compiled.output_slots))
+    table = table.to(planes.device)
     out = torch.empty((len(compiled.output_slots), planes.shape[1]), dtype=torch.int32,
-                      device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+                      device=planes.device)
 
     def run() -> torch.Tensor:
-        err = lib.bitserial_loop_launch(
-            planes.data_ptr(), out.data_ptr(), table.data_ptr(), in_slots.data_ptr(),
-            out_slots.data_ptr(), planes.shape[0], out.shape[0], table.shape[0],
-            compiled.num_cols, planes.shape[1], pb.words_per_block(compiled.num_cols), stream)
+        err = pb.launch_loop(lib, table, planes, out)
         if err != 0:
             raise RuntimeError(f"loop kernel launch failed: CUDA error {err}")
         return out
@@ -152,8 +143,10 @@ def main() -> int:
         for name, run in versions.items():
             if not torch.equal(run().clone(), want):
                 raise AssertionError(f"{name} differs from the plain version on {basis}")
-        print(f"{basis}: {compiled.num_gates} gates; table rows: shipped {table.shape[0]}, "
-              f"groups1 {one.shape[0]}; every version equal to plain", flush=True)
+        print(f"{basis}: {compiled.num_gates} gates; table rows: shipped {table.rows.shape[0]}, "
+              f"groups1 {one.rows.shape[0]}; live state {table.state_cols} columns, "
+              f"{table.words} words a block (groups1 {one.state_cols}, {one.words}); every "
+              f"version equal to plain", flush=True)
         times: dict[str, list[float]] = {name: [] for name in versions}
         for name in ("shipped", "switch", "groups1", "groups1", "switch", "shipped"):
             times[name].append(cuda_ms(versions[name]))

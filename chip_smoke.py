@@ -16,8 +16,10 @@ events beside its bound, and does the same for the packing kernels at
 ``PACK_ROWS`` rows (the benchmark's bulk call), f32 and int8, each beside
 its bytes bound and the plain path's time.  The same kernel-against-plain
 loop holds the loop kernel on the nine-tap program of ``repro_torch.pim.conv``
-(19 arguments, one warp a block) at VGG-16 D's smallest and largest calls
-(``CONV_ROWS``) on both bases; then the conv phase runs one input channel
+(19 arguments; 191 live state columns on memristive, 185 on dram, so 288
+words, 4.5 warps, a block; at least 256 words required) at VGG-16 D's
+smallest and largest calls (``CONV_ROWS``) on both bases, each loop case
+printing its live state and block and counting its launches; then the conv phase runs one input channel
 through ``conv3x3``, equal to ``vgg_reference.conv3x3_chain`` bit for bit,
 with its launches counted from zero (one loop kernel, 19 packs, one
 unpack); the kernels line carries the conv cases too.  The matmul phase drives the paper's Fig 5
@@ -233,8 +235,8 @@ DRYRUN_CELLS = [("stablelm-3b", "train_4k"), ("stablelm-3b", "decode_32k"),
 DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun_smoke")
 
 # The nine-tap program of ``repro_torch.pim.conv`` (19 float32 arguments;
-# 672 columns on memristive, so one 32-thread block an SM) on the loop
-# kernel at VGG-16 D's smallest and largest calls at batch 8, 224² (the
+# 672 schedule columns on memristive, but 191 live state columns, so 288
+# words, a block of 144 threads, an SM) on the loop kernel at VGG-16 D's smallest and largest calls at batch 8, 224² (the
 # last group's 8·14²·512 rows, the first group's 8·224²·64); then one input
 # channel of its first layer through ``conv3x3``: batch, side, Cout.
 CONV_ROWS = (802_816, 25_690_112)
@@ -1752,28 +1754,37 @@ def main() -> int:
         else:
             plain = lambda: pim_bitserial.unrolled_plain(  # noqa: E731
                 compiled, planes, segments)
+        pim_bitserial.reset_launches()
         out, ref = run(), plain()
         torch.cuda.synchronize()
         err = int((out.to(torch.int64) - ref.to(torch.int64)).abs().max().item())
         require(torch.equal(out, ref), f"{kernel} differs from its plain version on {label}")
         n_seg = len(segments) if mode == "unrolled" else 1
+        case_launches = dict(pim_bitserial.LAUNCHES)
+        require(case_launches[kernel] == n_seg and sum(case_launches.values()) == n_seg,
+                f"launches of one call on {label}: {case_launches}")
         ms = cuda_ms(run, TIMED_LAUNCHES)
         plain_ms = cuda_ms(plain, PLAIN_REPS)
         words = planes.shape[1]
         bms, by = bound_ms(compiled, words, int32_ops_per_s)
         earlier = (f"; {PERF_MD_FIRST_LOOP}: {PERF_MD_FIRST_LOOP_MS[label]} ms"
                    if label in PERF_MD_FIRST_LOOP_MS else "")
-        block = ""
-        if mode == "loop":  # one block an SM: its state fills the shared memory
-            block_words = pim_bitserial.words_per_block(compiled.num_cols)
-            block = (f", {block_words} words a block ("
-                     f"{block_words / pim_bitserial.LOOP_WORDS_PER_THREAD / 32:g} warps)")
+        block, geometry = "", {}
+        if mode == "loop":  # one block an SM: its live state fills the shared memory
+            table = pim_bitserial._loop_table(key, planes.device)
+            warps = table.words / pim_bitserial.LOOP_WORDS_PER_THREAD / 32
+            geometry = {"state_cols": table.state_cols, "words": table.words,
+                        "warps_per_sm": warps}
+            block = (f", live state {table.state_cols} cols, {table.words} words a block "
+                     f"({warps:g} warps an SM)")
+            if label.startswith("nine-tap conv"):
+                require(table.words >= 256, f"{table.words} words a block on {label}")
         say(f"kernel {kernel} on {label}: {compiled.num_gates} gates, {compiled.num_cols} "
             f"cols{block}, {n_seg} launch(es)/call, W={words} words: equal to plain "
             f"(max_abs_err {err}); {ms:.4f} ms/call, bound {bms:.4f} ms ({by}), "
             f"plain {plain_ms:.2f} ms{earlier}")
         results.append(dict(label=label, kernel=kernel, err=err, ms=ms,
-                            plain_ms=plain_ms, bound_ms=bms, bound_by=by))
+                            plain_ms=plain_ms, bound_ms=bms, bound_by=by, **geometry))
 
     native_ms = cuda_ms(lambda: xd * yd + zd, TIMED_LAUNCHES)
     say(f"yardstick (the paper's GPU side, not a version of either kernel): "
@@ -1843,7 +1854,8 @@ def main() -> int:
             "pack_launches": {k: conv_launches[k] for k in ("bitplane_pack", "bitplane_unpack")},
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-            "case": r["label"], **kernel_resources(loop_lib, loop_symbol),
+            "case": r["label"], "state_cols": r["state_cols"], "words": r["words"],
+            **kernel_resources(loop_lib, loop_symbol),
         })
     pack_lib = _build.library_path(*pim_bitplanes.build_job())
     for r in pack_results:

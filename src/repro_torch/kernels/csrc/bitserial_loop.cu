@@ -33,10 +33,31 @@
 //    in flight per warp instead of one;
 //  * every opcode is MAJ3(a, b, c) ^ invert, an operand that the opcode does
 //    not read naming one of two constant columns (all zeros, all ones)
-//    kept after the schedule's own: no branch on the opcode and no
-//    predicated load stands between one gate's loads and the next's.
-// Every column starts at zero, as the reference scratch does, but the ones
-// column; the rows that pad a stage write zero into the zero column.
+//    kept after the state's own: no branch on the opcode and no predicated
+//    load stands between one gate's loads and the next's.
+//
+// Live state.  The state is over half an SM's shared memory, so an SM runs
+// one block, and the state's width sets the block's words: 227 KB over
+// (columns + 2) x 4 B a word.  The schedule's own columns hold every input
+// from the start (19 float32 arguments are 608 of the nine-tap conv row's
+// 672 columns), which left that program 64 words a block, one warp an SM,
+// with one of the SM's four schedulers busy and every group waiting out its
+// shared-memory round trip alone.  So the table is not on the schedule's
+// columns but on the kernel's own (pim_bitserial.live_state): each write and
+// each input is a value that holds a column only while it is live, which
+// gives the nine-tap row 191 columns (288 words, 4.5 warps) and the f32 MAC
+// 127 (416 words, 6.5 warps).  Inputs are staged, not preloaded: a table of
+// (input, column) pairs a stage names the inputs that stage first reads, and
+// while stage s runs each thread copies its own 8 bytes of stage s + 1's
+// inputs from device memory with cp.async beside the table's next chunk,
+// waited for at the stage barrier that is there anyway.  The host holds a
+// staged column from the start of the stage before its first reader, so no
+// row touches a column that a copy is filling.  Stage 0's inputs load
+// before the loop; inputs returned unread are staged in a stage past the
+// last.  Each plane is still read once.  Every column is written before it
+// is read (a read of a column the schedule never wrote names the zero
+// column), so only the constant columns are initialised; the rows that pad
+// a stage write zero into the zero column.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -69,6 +90,10 @@ __device__ __forceinline__ Word maj3_xor(Word a, Word b, Word c, uint32_t inv) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(gmem) : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -104,9 +129,10 @@ __global__ void __launch_bounds__(1024) bitserial_loop_kernel(
     const uint32_t* __restrict__ planes_in,  // [n_in, W]
     uint32_t* __restrict__ planes_out,       // [n_out, W]
     const uint4* __restrict__ table,         // [n_rows / 2]: two packed rows each
-    const int* __restrict__ in_slots,        // [n_in]
+    const int* __restrict__ stage_starts,    // [n_rows / ROW_CHUNK + 2]
+    const int2* __restrict__ staged,         // (input, state column), by stage
     const int* __restrict__ out_slots,       // [n_out]
-    int n_in, int n_out, int n_rows, int num_cols, long long W) {
+    int n_out, int n_rows, int state_cols, long long W) {
   extern __shared__ __align__(16) unsigned char smem[];
   uint2* stage_rows = reinterpret_cast<uint2*>(smem);                        // [2][ROW_CHUNK]
   Word* state = reinterpret_cast<Word*>(smem + 2 * ROW_CHUNK * sizeof(uint2));  // [cols][threads]
@@ -122,24 +148,28 @@ __global__ void __launch_bounds__(1024) bitserial_loop_kernel(
   auto fetch = [&](int chunk) {
     uint4* dst = reinterpret_cast<uint4*>(stage_rows + (chunk & 1) * ROW_CHUNK);
     for (int i = t; i < COPIES; i += threads) cp_async16(dst + i, table + (long long)chunk * COPIES + i);
-    cp_async_commit();
   };
-  if (n_chunks > 0) fetch(0);  // a schedule with no gates has no table
+  // This thread's words of stage s's inputs, into their state columns.
+  auto stage_inputs = [&](int s) {
+    if (!live) return;
+    for (int k = __ldg(stage_starts + s), end = __ldg(stage_starts + s + 1); k < end; ++k) {
+      const int2 e = __ldg(staged + k);
+      cp_async8(state + e.y * threads + t, planes_in + e.x * W + w);
+    }
+  };
 
-  for (int col = 0; col <= num_cols; ++col) state[col * threads + t] = splat(0u);
-  state[(num_cols + 1) * threads + t] = splat(~0u);
-  for (int i = 0; i < n_in; ++i) {
-    state[__ldg(in_slots + i) * threads + t] =
-        live ? *reinterpret_cast<const Word*>(planes_in + i * W + w) : splat(0u);
-  }
+  state[state_cols * threads + t] = splat(0u);
+  state[(state_cols + 1) * threads + t] = splat(~0u);
+  stage_inputs(0);
+  if (n_chunks > 0) fetch(0);  // a schedule with no gates has no table
+  cp_async_commit();
 
   for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    if (chunk + 1 < n_chunks) {
-      fetch(chunk + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    // The next stage's rows and inputs land while this stage runs.
+    if (chunk + 1 < n_chunks) fetch(chunk + 1);
+    stage_inputs(chunk + 1);
+    cp_async_commit();
+    cp_async_wait<1>();
     __syncthreads();
     // The rows of the next group load while the current group runs (past
     // the stage's end they read rows that are never used).
@@ -164,6 +194,7 @@ __global__ void __launch_bounds__(1024) bitserial_loop_kernel(
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
+  cp_async_wait<0>();  // the inputs returned unread
 
   if (live) {
     for (int j = 0; j < n_out; ++j) {
@@ -177,20 +208,21 @@ __global__ void __launch_bounds__(1024) bitserial_loop_kernel(
 // n_rows is a multiple of ROW_CHUNK; words_per_block a multiple of 32; W a
 // multiple of WPT.  Returns the launch's cudaError_t (0 on success).
 extern "C" int bitserial_loop_launch(
-    const void* planes_in, void* planes_out, const void* table,
-    const void* in_slots, const void* out_slots, int n_in, int n_out,
-    int n_rows, int num_cols, long long W, int words_per_block, void* stream) {
+    const void* planes_in, void* planes_out, const void* table, const void* stage_starts,
+    const void* staged, const void* out_slots, int n_out, int n_rows, int state_cols,
+    long long W, int words_per_block, void* stream) {
   if (n_rows % ROW_CHUNK || words_per_block % 32 || W % WPT) return (int)cudaErrorInvalidValue;
   const int threads = words_per_block / WPT;
   const size_t smem = 2 * ROW_CHUNK * sizeof(uint2) +
-                      (size_t)(num_cols + 2) * words_per_block * sizeof(uint32_t);
+                      (size_t)(state_cols + 2) * words_per_block * sizeof(uint32_t);
   cudaError_t err = cudaFuncSetAttribute(
       bitserial_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (W + words_per_block - 1) / words_per_block;
   bitserial_loop_kernel<<<(unsigned)blocks, threads, smem, (cudaStream_t)stream>>>(
       (const uint32_t*)planes_in, (uint32_t*)planes_out, (const uint4*)table,
-      (const int*)in_slots, (const int*)out_slots, n_in, n_out, n_rows, num_cols, W);
+      (const int*)stage_starts, (const int2*)staged, (const int*)out_slots, n_out, n_rows,
+      state_cols, W);
   return (int)cudaGetLastError();
 }
 

@@ -15,7 +15,13 @@ Two kernels, written by hand for Hopper, port the two Pallas kernels of
   owns ``LOOP_WORDS_PER_THREAD`` words of a crossbar state in shared memory
   and walks a packed gate table (:func:`pack_rows`: 8 bytes a row, rows in
   hazard-free groups of ``GATE_GROUP`` so each group reads all its operands
-  before it writes).  Any schedule, no per-schedule build.
+  before it writes).  Any schedule, no per-schedule build.  The state is
+  the kernel's own, not the schedule's columns: :func:`live_state` gives
+  each value a column only while it is live, and inputs are staged, copied
+  in while the stage before their first reader runs, not all loaded
+  first.  One block fills an SM's shared memory, so that width sets the
+  warps an SM runs (:func:`words_per_block`): 4.5 for the nine-tap conv
+  row, whose 672 schedule columns, 608 of them inputs, gave one.
 * ``unrolled`` — generated per schedule by ``bitserial_codegen`` (replaces
   ``_unrolled_segment_kernel``): straight-line code on fixed column
   variables, in hazard-free wave chunks, split into segments of at most
@@ -37,6 +43,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -76,8 +83,8 @@ ROW_BYTES = 8
 # column index and 4 more bits: (a | op << 12 | invert << 15 | b << 16,
 # c | (group size - 1) << 12 | o << 16), the group size on a group's first
 # row only.  Every opcode runs as MAJ3(a, b, c) ^ invert, so an operand the
-# opcode does not read names one of two constant columns after the
-# schedule's own: all zeros (``num_cols``) and all ones (``num_cols + 1``).
+# opcode does not read names one of two constant columns after the live
+# state's own: all zeros (``state_cols``) and all ones (``state_cols + 1``).
 OP_SHIFT = 12
 INVERT_SHIFT = 15
 GROUP_SHIFT = 12
@@ -101,17 +108,22 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 
-def words_per_block(num_cols: int) -> int:
+def words_per_block(state_cols: int) -> int:
     """Packed words per block of the loop kernel: the largest multiple of 32
-    (at most 1024 threads) whose ``[num_cols + 2, words]`` state (with the
+    (at most 1024 threads) whose ``[state_cols + 2, words]`` state (with the
     two constant columns) fits in shared memory beside the two gate-table
-    stages."""
+    stages.  ``state_cols`` is the live state's width
+    (:attr:`LoopTable.state_cols`), not the schedule's ``num_cols``.  The
+    state takes over half of an SM's shared memory, so an SM runs one block,
+    and its width, not the gate count, sets the warps an SM runs: the
+    nine-tap conv row's 672 columns gave 64 words, one warp; its 191 live
+    ones give 288 words, 4.5 warps."""
     room = SMEM_LIMIT_BYTES - 2 * ROW_CHUNK * ROW_BYTES
     words = min(1024 * LOOP_WORDS_PER_THREAD,
-                room // (4 * (max(num_cols, 1) + 2)) // 32 * 32)
+                room // (4 * (max(state_cols, 1) + 2)) // 32 * 32)
     if words < 32:
         raise ValueError(
-            f"a {num_cols}-column schedule does not fit the loop kernel's "
+            f"a {state_cols}-column state does not fit the loop kernel's "
             f"shared memory even at 32 words per block")
     return words
 
@@ -133,12 +145,13 @@ def loop_operands(op: int, a: int, b: int, c: int, num_cols: int) -> tuple[int, 
 
 
 def loop_groups(compiled: ir.CompiledSchedule) -> list[list[tuple[int, int, int, int, int]]]:
-    """The loop kernel's row order: the schedule's rows in program order,
-    each hazard-free wave chunk cut into groups of at most ``GATE_GROUP``.
-    A group never straddles a ``ROW_CHUNK`` stage: the stage's tail, and the
-    table's, is filled with one-row groups that write zero into the zero
-    column ``num_cols``.  A group read in full before it is written computes
-    what program order computes."""
+    """The loop kernel's row order, in the schedule's columns: the rows in
+    program order, each hazard-free wave chunk cut into groups of at most
+    ``GATE_GROUP``.  A group never straddles a ``ROW_CHUNK`` stage: the
+    stage's tail, and the table's, is filled with one-row groups that write
+    zero into the zero column ``num_cols``.  A group read in full before it
+    is written computes what program order computes.  :func:`pack_rows`
+    then moves the rows onto the live state's columns (:func:`live_state`)."""
     pad = [(OP_INIT0, 0, 0, 0, compiled.num_cols)]
     groups: list[list[tuple[int, int, int, int, int]]] = []
     used = 0  # rows in the current stage
@@ -155,24 +168,165 @@ def loop_groups(compiled: ir.CompiledSchedule) -> list[list[tuple[int, int, int,
     return groups
 
 
-def pack_rows(compiled: ir.CompiledSchedule) -> torch.Tensor:
-    """The loop kernel's gate table: the rows of :func:`loop_groups` with
-    the operands of :func:`loop_operands`, packed into 8 bytes each,
-    ``int32 [rows, 2]``.  Raises ``ValueError`` if a column index does not
-    fit 12 bits or the state does not fit shared memory."""
-    n = compiled.num_cols
+class LiveState(NamedTuple):
+    """The loop kernel's own columns for the rows of :func:`loop_groups`
+    (:func:`live_state`); ``state_cols`` is the zero column, ``state_cols +
+    1`` the ones column."""
+
+    operands: np.ndarray  # [n_rows, 3]: the state column each read field names
+    out: np.ndarray  # [n_rows]: the state column each row writes
+    state_cols: int
+    staged: np.ndarray  # [n_staged, 3]: (stage, input index, state column)
+    out_slots: np.ndarray  # [n_out]: each output's state column
+
+
+# By opcode: which of the (a, b, c) fields it reads; and, from
+# loop_operands over stand-ins, which of (a, b, c, zero, ones) the kernel
+# reads as each operand, and whether it inverts.
+_READS = np.array([[f in operand_slots(op) for f in range(3)] for op in range(8)])
+_OPERANDS = np.array([loop_operands(op, 0, 1, 2, 3)[:3] for op in range(8)])
+_INVERT = np.array([loop_operands(op, 0, 1, 2, 3)[3] for op in range(8)])
+
+
+def live_state(compiled: ir.CompiledSchedule, rows: np.ndarray,
+               group: np.ndarray) -> LiveState:
+    """Allocate the loop kernel's state columns for ``rows`` ``[n_rows, 5]``,
+    the rows of :func:`loop_groups` in order, of group indices ``group``.
+
+    Each write, and each input, is one value.  A value holds a state column
+    from its start to its last read, or to the end if the schedule returns
+    it; a linear scan over those intervals reaches the peak number of values
+    live at once.  A group reads all its operands before it writes, so a
+    value last read in a group frees its column for the values the group
+    writes.  An input is staged in the stage of its first reader, and one
+    that is returned unread in stage ``n_rows / ROW_CHUNK`` after the last;
+    its copy lands while the stage before runs, so its column is held from
+    the start of that stage.  A read of a column never written and not an
+    input reads the zero column: the schedule's scratch starts at zero."""
+    n_rows, n_in, zero_value = len(rows), len(compiled.input_slots), -1
+    op, out = rows[:, 0], rows[:, 4]
+    before = np.full(compiled.num_cols, zero_value)  # each column's first value
+    before[compiled.input_slots] = np.arange(n_in)
+    wrote = np.flatnonzero(out != compiled.num_cols)  # value n_in + i: write i
+    keys = out[wrote].astype(np.int64) * (n_rows + 1) + wrote
+    by_key = np.argsort(keys, kind="stable")
+    keys = keys[by_key]
+
+    def value_at(col, row):
+        """The value that column ``col`` holds when row ``row`` reads."""
+        pos = np.searchsorted(keys, col.astype(np.int64) * (n_rows + 1) + row) - 1
+        hit = pos >= 0
+        hit[hit] = keys[pos[hit]] // (n_rows + 1) == col[hit]
+        value = before[col]
+        value[hit] = n_in + by_key[pos[hit]]
+        return value
+
+    reads = _READS[op]
+    operands = np.full((n_rows, 3), zero_value)
+    for f in range(3):
+        r = np.flatnonzero(reads[:, f])
+        operands[r, f] = value_at(rows[r, 1 + f], r)
+    n_values = n_in + len(wrote)
+    read_row = np.broadcast_to(np.arange(n_rows)[:, None], reads.shape)[reads]
+    read_value = operands[reads]
+    live = read_value != zero_value
+    read_row, read_value = read_row[live], read_value[live]
+    last = np.full(n_values, -1)
+    np.maximum.at(last, read_value, group[read_row])
+    first = np.full(n_in, n_rows)  # first reader's row
+    inputs = read_value < n_in
+    np.minimum.at(first, read_value[inputs], read_row[inputs])
+    final = value_at(np.asarray(compiled.output_slots, dtype=np.int64), n_rows)
+    returned = np.zeros(n_values, bool)
+    returned[final[final != zero_value]] = True
+
+    # Times: the inputs staged in stage k + 1 take their columns at 4 * (the
+    # first group of stage k), before any of its rows; group g's reads free
+    # at 4g + 2 and its writes take at 4g + 3; a write never read frees at
+    # 4g + 4.  At one time, frees come before takes.
+    staged_in = np.flatnonzero((first < n_rows) | returned[:n_in])
+    stage = first[staged_in] // ROW_CHUNK  # n_rows / ROW_CHUNK if returned unread
+    first_group = np.append(group[::ROW_CHUNK], 0)  # of each stage; 0 with no rows
+    take_in = 4 * first_group[np.maximum(stage - 1, 0)]
+    take_gate = 4 * group[wrote] + 3
+    values = np.concatenate([staged_in, np.arange(n_in, n_values)])
+    take = np.concatenate([take_in, take_gate])
+    free = np.where(last[values] >= 0, 4 * last[values] + 2, take + 1)
+    freed = ~returned[values]
+    order = np.argsort(np.concatenate([2 * take + 1, 2 * free[freed]]), kind="stable")
+    who = np.concatenate([values, values[freed]])[order].tolist()
+    taking = (order < len(values)).tolist()
+    col = [0] * n_values
+    spare: list[int] = []
+    width = 0
+    for t, v in zip(taking, who):
+        if not t:
+            spare.append(col[v])
+        elif spare:
+            col[v] = spare.pop()
+        else:
+            col[v], width = width, width + 1
+    col = np.array(col + [width], dtype=np.int64)  # [-1], the zero value: the zero column
+    out_value = np.full(n_rows, zero_value)
+    out_value[wrote] = np.arange(n_in, n_values)
+    return LiveState(col[operands], col[out_value], width,
+                     np.stack([stage, staged_in, col[staged_in]], axis=1),
+                     col[final])
+
+
+class LoopTable(NamedTuple):
+    """What the loop kernel reads beside the planes (:func:`pack_rows`).
+    Stage ``s`` of the table's ``n_rows / ROW_CHUNK`` stages stages the
+    inputs ``staged[stage_starts[s]:stage_starts[s + 1]]`` into their state
+    columns; stage ``n_rows / ROW_CHUNK``, past the last, those returned
+    unread."""
+
+    rows: torch.Tensor  # int32 [n_rows, 2]: the packed gate table
+    stage_starts: torch.Tensor  # int32 [n_rows / ROW_CHUNK + 2]
+    staged: torch.Tensor  # int32 [n_staged, 2]: (input index, state column)
+    out_slots: torch.Tensor  # int32 [n_out]: each output's state column
+    state_cols: int  # the live state's width, beside the two constant columns
+    words: int  # words a block: words_per_block(state_cols)
+
+    def to(self, device: torch.device) -> LoopTable:
+        return self._replace(**{f: getattr(self, f).to(device).contiguous()
+                                for f in ("rows", "stage_starts", "staged", "out_slots")})
+
+
+def pack_rows(compiled: ir.CompiledSchedule) -> LoopTable:
+    """The loop kernel's table: the rows of :func:`loop_groups` on the
+    columns of :func:`live_state`, with the operands of
+    :func:`loop_operands`, packed into 8 bytes each, and the staging lists
+    and output columns of that state.  Raises ``ValueError`` if the live
+    state's columns do not fit 12 bits or the state does not fit shared
+    memory."""
+    groups = loop_groups(compiled)
+    rows = np.array([row for g in groups for row in g], dtype=np.int64).reshape(-1, 5)
+    group = np.repeat(np.arange(len(groups)), [len(g) for g in groups])
+    state = live_state(compiled, rows, group)
+    n = state.state_cols
     if n > MAX_LOOP_COLS:
-        raise ValueError(f"a {n}-column schedule and two constant columns do not "
+        raise ValueError(f"a {n}-column live state and two constant columns do not "
                          f"fit the loop kernel's {COL_BITS}-bit column indices")
-    words_per_block(n)
-    table = []
-    for group in loop_groups(compiled):
-        for i, (op, a, b, c, o) in enumerate(group):
-            a, b, c, invert = loop_operands(op, a, b, c, n)
-            size = len(group) - 1 if i == 0 else 0
-            table.append((a | op << OP_SHIFT | invert << INVERT_SHIFT | b << HALF_SHIFT,
-                          c | size << GROUP_SHIFT | o << HALF_SHIFT))
-    return torch.from_numpy(np.array(table, dtype=np.uint32).reshape(-1, 2).view(np.int32))
+    words = words_per_block(n)
+    op = rows[:, 0]
+    constants = np.broadcast_to(np.array([n, n + 1]), (len(rows), 2))
+    choices = np.concatenate([state.operands, constants], axis=1)
+    a, b, c = np.take_along_axis(choices, _OPERANDS[op], axis=1).T
+    invert = _INVERT[op]
+    starts = np.flatnonzero(np.diff(group, prepend=-1))
+    size = np.zeros(len(rows), dtype=np.int64)
+    size[starts] = np.diff(starts, append=len(rows)) - 1
+    table = np.stack([a | op << OP_SHIFT | invert << INVERT_SHIFT | b << HALF_SHIFT,
+                      c | size << GROUP_SHIFT | state.out << HALF_SHIFT], axis=1)
+    stage, staged = state.staged[:, 0], state.staged[:, 1:]
+    order = np.argsort(stage, kind="stable")
+    stage_starts = np.searchsorted(stage[order], np.arange(len(rows) // ROW_CHUNK + 2))
+    return LoopTable(
+        torch.from_numpy(table.astype(np.uint32).view(np.int32)),
+        torch.from_numpy(stage_starts.astype(np.int32)),
+        torch.from_numpy(staged[order].astype(np.int32)),
+        torch.from_numpy(state.out_slots.astype(np.int32)), n, words)
 
 
 def loop_plain(compiled: ir.CompiledSchedule, planes: torch.Tensor) -> torch.Tensor:
@@ -186,13 +340,30 @@ def _loop_lib() -> ctypes.CDLL:
     with spans.span("exec.build", what="loop library"):
         _build.build(build_jobs())  # one nvcc round with the packing kernels
         lib = _build.load("bitserial_loop", LOOP_SOURCE.read_text())
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bitserial_loop_launch.argtypes = [p, p, p, p, p, i, i, i, i,
-                                          ctypes.c_longlong, i, p]
-    lib.bitserial_loop_launch.restype = ctypes.c_int
+    bind_loop(lib)
     lib.bitserial_error_string.argtypes = [ctypes.c_int]
     lib.bitserial_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def bind_loop(lib: ctypes.CDLL) -> None:
+    """Declare ``bitserial_loop_launch``'s arguments on a loaded library."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bitserial_loop_launch.argtypes = [p, p, p, p, p, p, i, i, i,
+                                          ctypes.c_longlong, i, p]
+    lib.bitserial_loop_launch.restype = ctypes.c_int
+
+
+def launch_loop(lib: ctypes.CDLL, table: LoopTable, planes: torch.Tensor,
+                out: torch.Tensor) -> int:
+    """Launch ``lib``'s loop kernel with ``table`` (on the planes' device)
+    over ``planes`` into ``out`` on the current stream; returns the launch's
+    CUDA error code."""
+    return lib.bitserial_loop_launch(
+        planes.data_ptr(), out.data_ptr(), table.rows.data_ptr(),
+        table.stage_starts.data_ptr(), table.staged.data_ptr(), table.out_slots.data_ptr(),
+        out.shape[0], table.rows.shape[0], table.state_cols, planes.shape[1], table.words,
+        torch.cuda.current_stream(planes.device).cuda_stream)
 
 
 def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
@@ -202,21 +373,14 @@ def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
 
 
 def _launch_loop(key: str, planes: torch.Tensor) -> torch.Tensor:
-    compiled = _SCHEDULES[key]
-    table, in_slots, out_slots = _loop_table(key, planes.device)
+    table = _loop_table(key, planes.device)
     lib = _loop_lib()
-    n_in, W = planes.shape
-    out = torch.empty((out_slots.shape[0], W), dtype=torch.int32,
+    out = torch.empty((table.out_slots.shape[0], planes.shape[1]), dtype=torch.int32,
                       device=planes.device)
-    if W == 0:
+    if planes.shape[1] == 0:
         return out
-    stream = torch.cuda.current_stream(planes.device).cuda_stream
-    words = words_per_block(compiled.num_cols)
-    with spans.span("exec.launch"):
-        err = lib.bitserial_loop_launch(
-            planes.data_ptr(), out.data_ptr(), table.data_ptr(),
-            in_slots.data_ptr(), out_slots.data_ptr(), n_in, out.shape[0],
-            table.shape[0], compiled.num_cols, W, words, stream)
+    with spans.span("exec.launch", state_cols=table.state_cols, words=table.words):
+        err = launch_loop(lib, table, planes, out)
     _check(lib, err, f"bitserial_loop launch for {key!r}")
     spans.count("exec.launches.bitserial_loop")
     return out
@@ -349,8 +513,8 @@ def _launch_unrolled(key: str, planes: torch.Tensor) -> torch.Tensor:
 
 # Registry of compiled schedules by key.
 _SCHEDULES: dict[str, ir.CompiledSchedule] = {}
-# Loop-kernel packed gate tables uploaded once per (key, device).
-_LOOP_TABLES: dict[str, dict[torch.device, tuple]] = {}
+# Loop-kernel tables uploaded once per (key, device).
+_LOOP_TABLES: dict[str, dict[torch.device, LoopTable]] = {}
 # Wave-chunked straight-line segments and their built libraries.
 _SEGMENTS: dict[str, list] = {}
 _UNROLLED_LIBS: dict[str, ctypes.CDLL] = {}
@@ -376,18 +540,14 @@ def _check_columns(key: str, compiled: ir.CompiledSchedule) -> None:
                          f"0..{compiled.num_cols - 1}")
 
 
-def _loop_table(key: str, device: torch.device) -> tuple:
-    """``(packed gate table [rows, 2], input slots, output slots)`` int32 on
-    ``device``, built once per key and device."""
+def _loop_table(key: str, device: torch.device) -> LoopTable:
+    """The loop kernel's :class:`LoopTable` on ``device``, built once per key
+    and device."""
     per_device = _LOOP_TABLES.setdefault(key, {})
     table = per_device.get(device)
     if table is None:
         with spans.span("exec.build", what="table"):
-            compiled = _SCHEDULES[key]
-            slots = (torch.tensor(x, dtype=torch.int32)
-                     for x in (compiled.input_slots, compiled.output_slots))
-            table = per_device[device] = tuple(
-                x.to(device).contiguous() for x in (pack_rows(compiled), *slots))
+            table = per_device[device] = pack_rows(_SCHEDULES[key]).to(device)
     return table
 
 

@@ -74,6 +74,31 @@ def test_loop_kernel_on_short_schedules(cuda, n_gates):
     assert torch.equal(got, pim_bitserial.loop_plain(compiled, planes))
 
 
+def test_loop_kernel_stages_unread_and_unwritten_columns(cuda):
+    """A table whose last stage stages an input the schedule returns unread
+    (copied while the last stage runs), whose other inputs are neither read
+    nor returned, and one of whose outputs is a column never written (the
+    zero column), on the loop kernel at a width that leaves part of a block
+    idle."""
+    from _torch_ref import schedule_fields
+
+    from repro_torch import convert
+    from repro_torch.core.machine import OP_INIT1
+
+    fields = schedule_fields(ir.compile_op("fixed_add", 8))
+    n = fields["num_cols"]
+    compiled = convert.compiled_from_numpy(dict(
+        fields, key="loop_unread_unwritten", ops=[(OP_INIT1, 0, 0, 0, n - 1)] * 300,
+        input_cols={"a": [0], "b": [1], "c": [2]},
+        output_cols={"b": [1], "never": [3], "ones": [n - 1]}))
+    key = pim_bitserial.register_compiled(compiled)
+    planes = _planes(3, 700, seed=5, device=cuda)
+    got = pim_bitserial.run_schedule(key, planes, mode="loop")
+    torch.cuda.synchronize()
+    assert torch.equal(got, pim_bitserial.loop_plain(compiled, planes))
+    assert torch.equal(got[0], planes[1]) and not got[1].any() and (got[2] == -1).all()
+
+
 def test_fixed_add_wrapper_on_card(cuda):
     rng = np.random.default_rng(0)
     a, b = (rng.integers(-2**31, 2**31, 5000).astype(np.int32) for _ in range(2))

@@ -1,28 +1,34 @@
-"""The loop kernel's host-side gate table on the CPU: the packed rows unpack
-to the compiled schedule exactly; a plain PyTorch walk of the table in the
-kernel's order (each hazard-free group read in full before any of it is
-written) equals the port's ``ir.interpret`` and the JAX reference
-``interpreter`` word for word; and schedules the kernel cannot take are
-refused.  The table format is also held against the constants of
-``csrc/bitserial_loop.cu``."""
+"""The loop kernel's host-side table on the CPU: the packed rows, read
+through the executor's live-state columns, are the compiled schedule's rows
+on the same values; a plain PyTorch walk of the table in the kernel's order
+(each hazard-free group read in full before any of it is written, each
+stage's inputs written when their copy is issued, at the start of the stage
+before) equals the port's ``ir.interpret`` and the JAX reference
+``interpreter`` word for word; staged inputs land in columns no row touches
+meanwhile; the live state is no wider than the schedule and its width is
+pinned for the f32 MAC and the nine-tap conv row; and schedules whose live
+state the kernel cannot take are refused.  The table format is also held
+against the constants of ``csrc/bitserial_loop.cu``."""
 
 import dataclasses
+import functools
 import re
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_ref import MAC, schedule_fields
+from _torch_ref import MAC, OP_CASES, schedule_fields
 
 import repro.pim as ref_pim
 from repro.core import ir as ref_ir
 from repro_torch import convert
 from repro_torch.core import ir
-from repro_torch.core.machine import operand_slots
+from repro_torch.core.machine import OP_INIT0, OP_INIT1, operand_slots
 from repro_torch.kernels import pim_bitserial as pb
 
 W = 45  # packed words
+BASES = ("memristive", "dram")
 PROGRAMS = {
     "f32_mac": lambda pim, basis: pim.compile(MAC, dtype=pim.f32).compiled(basis),
     "bf16_mac": lambda pim, basis: pim.compile(MAC, dtype=pim.bf16).compiled(basis),
@@ -31,20 +37,46 @@ PROGRAMS = {
     "fixed_add": lambda pim, basis: (
         pim.compile(lambda a, b: a + b, dtype=pim.fixed(32)).compiled(basis)),
 }
-CASES = [(name, basis) for name in PROGRAMS for basis in ("memristive", "dram")]
+CASES = [(name, basis) for name in PROGRAMS for basis in BASES]
+# The nine-tap conv row of ``repro_torch.pim.conv`` (19 float32 arguments),
+# about 20 s a basis to compile on the CPU: compiled once a basis in this file.
+NINE_TAP_CASES = [("nine_tap", basis) for basis in BASES]
 MASK = (1 << pb.COL_BITS) - 1
 
 
+@functools.lru_cache(maxsize=None)
 def _port(name: str, basis: str) -> ir.CompiledSchedule:
+    if name == "nine_tap":
+        from repro_torch.pim import conv
+
+        return conv.PROGRAM.compiled(basis)
     import repro_torch.pim as pim
 
     return PROGRAMS[name](pim, basis)
 
 
-def _decode(table: torch.Tensor) -> list[tuple[int, ...]]:
+def _ref(name: str, basis: str):
+    """The JAX reference's schedule: compiled by the reference, but for the
+    nine-tap row, whose port schedule is handed to the reference as it is."""
+    if name == "nine_tap":
+        return ref_ir.CompiledSchedule(**schedule_fields(_port(name, basis)))
+    return PROGRAMS[name](ref_pim, basis)
+
+
+@functools.lru_cache(maxsize=None)
+def _table(name: str, basis: str) -> pb.LoopTable:
+    return pb.pack_rows(_port(name, basis))
+
+
+def _planes(n_in: int, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, 2**32, (n_in, W), dtype=np.uint64).astype(np.uint32)
+
+
+def _decode(rows: torch.Tensor) -> list[tuple[int, ...]]:
     """``(op, a, b, c, o, invert, group size or 0)`` per packed row, the
     operands as the kernel reads them (constant columns included)."""
-    words = table.numpy().view(np.uint32).astype(np.int64)
+    words = rows.numpy().view(np.uint32).astype(np.int64)
     half = pb.HALF_SHIFT
     return [(int(lo >> pb.OP_SHIFT) & 7, int(lo) & MASK, int(lo >> half) & MASK,
              int(hi) & MASK, int(hi >> half) & MASK, int(lo >> pb.INVERT_SHIFT) & 1,
@@ -63,110 +95,256 @@ def _groups(rows):
     return out
 
 
-def _walk(table: torch.Tensor, compiled, planes: torch.Tensor) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch: a state with the zero and
-    ones columns after the schedule's; per group, every operand of every
-    row, then MAJ3 ^ invert into every output column."""
+def _stage_lists(table: pb.LoopTable) -> list[list[tuple[int, int]]]:
+    """``(input index, state column)`` pairs of each stage, the last one past
+    the table's stages."""
+    starts, staged = table.stage_starts.tolist(), [tuple(p) for p in table.staged.tolist()]
+    assert len(starts) == table.rows.shape[0] // pb.ROW_CHUNK + 2 and starts[0] == 0
+    assert starts[-1] == len(staged) and starts == sorted(starts)
+    return [staged[a:b] for a, b in zip(starts, starts[1:])]
+
+
+def _run(table: pb.LoopTable, state: list, inputs, gate):
+    """The kernel's order over ``state`` (``state_cols + 2`` entries, the
+    constant columns last): stage 0's inputs first, and each later stage's
+    written when its copy is issued, at the start of the stage before; per
+    group, every operand of every row, then ``gate`` into every output
+    column.  Returns the state's entries at ``out_slots``."""
+    stages = _stage_lists(table)
+
+    def stage(s):
+        for i, col in stages[s]:
+            state[col] = inputs[i]
+    stage(0)
+    for start, group in _groups(_decode(table.rows)):
+        if start % pb.ROW_CHUNK == 0:
+            stage(start // pb.ROW_CHUNK + 1)
+        results = [(row[4], gate(row, state[row[1]], state[row[2]], state[row[3]]))
+                   for row in group]
+        for o, value in results:
+            state[o] = value
+    return [state[s] for s in table.out_slots.tolist()]
+
+
+def _walk(table: pb.LoopTable, planes: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch: a state of ``state_cols``
+    columns of junk, since every column is written before it is read, then
+    the zero and ones columns; MAJ3 ^ invert a row."""
     words = planes.shape[1]
     zeros = torch.zeros(words, dtype=torch.int32)
-    cols = [zeros] * compiled.num_cols + [zeros, ~zeros]
-    for i, slot in enumerate(compiled.input_slots):
-        cols[slot] = planes[i]
-    for _, group in _groups(_decode(table)):
-        results = []
-        for _, a, b, c, o, invert, _ in group:
-            va, vb, vc = cols[a], cols[b], cols[c]
-            results.append((o, ((va & vb) | (vc & (va | vb))) ^ (~zeros if invert else zeros)))
-        for o, value in results:
-            cols[o] = value
-    return torch.stack([cols[s] for s in compiled.output_slots])
+    junk = torch.Generator().manual_seed(table.state_cols)
+    state = [torch.randint(-2**31, 2**31, (words,), dtype=torch.int32, generator=junk)
+             for _ in range(table.state_cols)] + [zeros, ~zeros]
+
+    def gate(row, va, vb, vc):
+        return ((va & vb) | (vc & (va | vb))) ^ (~zeros if row[5] else zeros)
+    return torch.stack(_run(table, state, planes, gate))
 
 
-@pytest.mark.parametrize("name,basis", CASES)
-def test_packed_rows_unpack_to_the_schedule(name, basis):
-    compiled = _port(name, basis)
-    table = pb.pack_rows(compiled)
-    assert table.dtype == torch.int32 and table.shape[1] == 2
-    assert table.shape[0] % pb.ROW_CHUNK == 0
-    rows = _decode(table)
-    zero = compiled.num_cols
-    real = [r for r in rows if r[4] != zero]
-    unpacked = []
-    for op, a, b, c, o, invert, _ in real:
-        # The kernel's operands and inversion are those of loop_operands; the
-        # fields the opcode does not read are 0 in the schedule.
-        fields = [0, 0, 0]
-        for slot in operand_slots(op):
-            fields[slot] = (a, b, c)[slot]
-        assert pb.loop_operands(op, *fields, zero) == (a, b, c, bool(invert))
-        unpacked.append((op, *fields, o))
-    np.testing.assert_array_equal(np.array(unpacked, dtype=np.int32).reshape(-1, 5),
-                                  np.asarray(compiled.ops))
-    for op, a, b, c, o, invert, _ in rows:
+def _values(table: pb.LoopTable, n_in: int):
+    """The table's rows as values: per real row (one that does not pad),
+    ``(op, operand values)`` with each write a new value ``("w", k)`` and
+    input ``i`` the value ``("in", i)``; then the outputs' values.  A read of
+    a column never written is ``None``."""
+    zero = table.state_cols
+    state = [None] * zero + [("zero",), ("ones",)]
+    real = []
+
+    def gate(row, *operands):
+        op, o = row[0], row[4]
         if o == zero:  # padding: writes zero into the zero column
-            assert (op, a, b, c, invert) == (pb.OP_INIT0, zero, zero, zero, 0)
+            assert row[:4] + row[5:6] == (OP_INIT0, zero, zero, zero, 0)
+            return ("zero",)
+        real.append((op, tuple(operands[f] for f in operand_slots(op))))
+        return ("w", len(real) - 1)
+    outs = _run(table, state, [("in", i) for i in range(n_in)], gate)
+    return real, outs
+
+
+def _schedule_values(compiled):
+    """The same for the schedule's rows in program order: every column but
+    the inputs starts as the zero value."""
+    state = [("zero",)] * compiled.num_cols
+    for i, slot in enumerate(compiled.input_slots):
+        state[slot] = ("in", i)
+    real = []
+    for op, *fields, o in compiled.ops.tolist():
+        real.append((op, tuple(state[fields[f]] for f in operand_slots(op))))
+        state[o] = ("w", len(real) - 1)
+    return real, [state[s] for s in compiled.output_slots]
+
+
+@pytest.mark.parametrize("name,basis", CASES + NINE_TAP_CASES)
+def test_packed_rows_unpack_to_the_schedule(name, basis):
+    compiled, table = _port(name, basis), _table(name, basis)
+    assert table.rows.dtype == torch.int32 and table.rows.shape[1] == 2
+    assert table.rows.shape[0] % pb.ROW_CHUNK == 0
+    rows = _decode(table.rows)
+    zero = table.state_cols
+    for op, a, b, c, o, invert, _ in rows:
+        # The kernel's operands and inversion are those of loop_operands.
+        fields = [v if f in operand_slots(op) else 0 for f, v in enumerate((a, b, c))]
+        assert pb.loop_operands(op, *fields, zero) == (a, b, c, bool(invert))
+    # Read through the live state, the rows are the schedule's, in program
+    # order, on the same values, and so are the outputs.
+    assert _values(table, len(compiled.input_slots)) == _schedule_values(compiled)
     groups = _groups(rows)
     assert sum(len(g) for _, g in groups) == len(rows)
     for start, group in groups:
         assert 1 <= len(group) <= pb.GATE_GROUP
         assert start // pb.ROW_CHUNK == (start + len(group) - 1) // pb.ROW_CHUNK
         assert all(r[6] == 0 for r in group[1:])
-        # Hazard-free: no row reads or rewrites a column written earlier in
-        # its group.
-        written = set()
-        for _, a, b, c, o, _, _ in group:
-            assert not ({a, b, c} & written) and (o not in written or o == zero)
-            written.add(o)
+        outs = [r[4] for r in group if r[4] != zero]
+        assert len(set(outs)) == len(outs)  # no column written twice in a group
     # Program order: the real rows' groups follow the wave chunks, cut at
-    # GATE_GROUP, so no more groups than that.
+    # GATE_GROUP, so no more groups than that; in the schedule's columns a
+    # group is hazard-free (no row reads or rewrites a column written
+    # earlier in it), which makes its read-then-write order program order.
     chunks = pb._wave_chunks([tuple(int(x) for x in r) for r in compiled.ops])
     n_real_groups = sum(1 for _, g in groups if g[0][4] != zero)
     assert n_real_groups == sum(-(-len(c) // pb.GATE_GROUP) for c in chunks)
+    for group in pb.loop_groups(compiled):
+        written = set()
+        for op, a, b, c, o in group:
+            assert not ({(a, b, c)[f] for f in operand_slots(op)} & written)
+            assert o not in written or o == compiled.num_cols
+            written.add(o)
 
 
-@pytest.mark.parametrize("name,basis", CASES)
+@pytest.mark.parametrize("name,basis", CASES + NINE_TAP_CASES)
 def test_table_walk_matches_interpreters(name, basis):
     compiled = _port(name, basis)
-    ref_c = PROGRAMS[name](ref_pim, basis)
-    rng = np.random.default_rng(len(name) + len(basis))
-    planes = rng.integers(0, 2**32, (len(compiled.input_slots), W),
-                          dtype=np.uint64).astype(np.uint32)
+    planes = _planes(len(compiled.input_slots), len(name) + len(basis))
     tp = convert.planes_from_numpy(planes, device="cpu")
-    got = _walk(pb.pack_rows(compiled), compiled, tp)
+    got = _walk(_table(name, basis), tp)
     assert torch.equal(got, ir.interpret(compiled, tp))
     want = np.asarray(ref_ir.get_backend("interpreter").run(
-        ref_c, jnp.asarray(planes)).planes)
+        _ref(name, basis), jnp.asarray(planes)).planes)
     np.testing.assert_array_equal(convert.planes_to_numpy(got), want)
+
+
+def _first_readers(compiled, table) -> dict[int, int]:
+    """Each input's first reader, by table row."""
+    first = {}
+    real, _ = _values(table, len(compiled.input_slots))
+    rows = [r for r, row in enumerate(_decode(table.rows)) if row[4] != table.state_cols]
+    for r, (_, operands) in zip(rows, real):
+        for v in operands:
+            if v[0] == "in":
+                first.setdefault(v[1], r)
+    return first
+
+
+@pytest.mark.parametrize("name,basis", CASES + NINE_TAP_CASES)
+def test_staged_inputs_land_in_idle_columns(name, basis):
+    """Every input a row reads is staged once, in the stage of its first
+    reader, into a column that no row touches from the start of the stage
+    before up to that reader's group; an input returned unread is staged
+    past the last stage, and one neither read nor returned not at all."""
+    compiled, table = _port(name, basis), _table(name, basis)
+    first = _first_readers(compiled, table)
+    stages = _stage_lists(table)
+    staged = {i: (s, col) for s, pairs in enumerate(stages) for i, col in pairs}
+    assert len(staged) == sum(len(p) for p in stages)  # each input once
+    _, outs = _schedule_values(compiled)
+    returned = {v[1] for v in outs if v[0] == "in"}
+    assert set(staged) == set(first) | returned
+    rows = _decode(table.rows)
+    group_start = {r: start for start, g in _groups(rows) for r in range(start, start + len(g))}
+    n_stages = len(rows) // pb.ROW_CHUNK
+    for i, (s, col) in staged.items():
+        assert col < table.state_cols
+        if i not in first:
+            assert s == n_stages
+            continue
+        assert s == first[i] // pb.ROW_CHUNK
+        held = rows[max(s - 1, 0) * pb.ROW_CHUNK:group_start[first[i]]]
+        assert all(col not in row[1:5] for row in held), (i, s, col)
+        assert col in rows[first[i]][1:4]
+
+
+@pytest.mark.parametrize("op,nbits", OP_CASES)
+@pytest.mark.parametrize("basis", BASES)
+def test_live_state_is_no_wider_than_the_schedule(op, nbits, basis):
+    compiled = ir.compile_op(op, nbits, basis=basis)
+    table = pb.pack_rows(compiled)
+    assert table.state_cols <= compiled.num_cols
+    assert table.words == pb.words_per_block(table.state_cols)
+
+
+# (state_cols, words a block) by program and basis.  Tighter by one or two
+# columns than a count by rows (192 / 187 / 128 / 123), since a group reads
+# all its operands before it writes: a value last read in a group gives its
+# column to one the group writes.
+PINNED = {("nine_tap", "memristive"): (191, 288), ("nine_tap", "dram"): (185, 288),
+          ("f32_mac", "memristive"): (127, 416), ("f32_mac", "dram"): (121, 448)}
+
+
+@pytest.mark.parametrize("name,basis", PINNED)
+def test_live_state_widths_are_pinned(name, basis):
+    table = _table(name, basis)
+    assert (table.state_cols, table.words) == PINNED[name, basis]
+    assert table.state_cols <= _port(name, basis).num_cols
 
 
 @pytest.mark.parametrize("n_gates", [0, 3])
 def test_short_schedule_tables(n_gates):
     """A schedule with no gates has an empty table (the kernel then fetches
-    no stage); three gates fill one padded stage.  Either walks to what
-    ``ir.interpret`` gives."""
+    no stage) and stages what it returns before the loop; three gates fill
+    one padded stage.  Either walks to what ``ir.interpret`` gives."""
     full = ir.compile_op("fixed_add", 8)
     compiled = dataclasses.replace(full, key=f"fixed_add8_first{n_gates}",
                                    ops=full.ops[:n_gates])
     table = pb.pack_rows(compiled)
-    assert table.shape == (pb.ROW_CHUNK if n_gates else 0, 2)
-    rng = np.random.default_rng(n_gates)
-    planes = convert.planes_from_numpy(
-        rng.integers(0, 2**32, (len(compiled.input_slots), W), dtype=np.uint64)
-        .astype(np.uint32), device="cpu")
-    assert torch.equal(_walk(table, compiled, planes), ir.interpret(compiled, planes))
+    assert table.rows.shape == (pb.ROW_CHUNK if n_gates else 0, 2)
+    assert table.stage_starts.shape == (table.rows.shape[0] // pb.ROW_CHUNK + 2,)
+    planes = convert.planes_from_numpy(_planes(len(compiled.input_slots), n_gates),
+                                       device="cpu")
+    assert torch.equal(_walk(table, planes), ir.interpret(compiled, planes))
+
+
+def test_unread_and_unwritten_columns():
+    """An input nobody reads or returns is not staged; one returned unread
+    is staged past the last stage; an output column the schedule never
+    writes reads the zero column."""
+    fields = schedule_fields(ir.compile_op("fixed_add", 8))
+    n = fields["num_cols"]
+    ops = [(OP_INIT1, 0, 0, 0, n - 1)] * 300  # two stages of one dead column
+    compiled = convert.compiled_from_numpy(dict(
+        fields, ops=ops, input_cols={"a": [0], "b": [1], "c": [2]},
+        output_cols={"b": [1], "never": [3], "ones": [n - 1]}))
+    table = pb.pack_rows(compiled)
+    stages = _stage_lists(table)
+    assert [len(p) for p in stages] == [0, 0, 1] and stages[-1][0][0] == 1
+    assert table.out_slots[1] == table.state_cols  # the zero column
+    planes = convert.planes_from_numpy(_planes(3, 11), device="cpu")
+    assert torch.equal(_walk(table, planes), ir.interpret(compiled, planes))
+
+
+def _outputs_only(n_cols: int) -> ir.CompiledSchedule:
+    """A schedule that writes ``n_cols`` columns and returns them all, so all
+    are live at its end."""
+    fields = schedule_fields(ir.compile_op("fixed_add", 8))
+    return convert.compiled_from_numpy(dict(
+        fields, num_cols=n_cols, ops=[(OP_INIT1, 0, 0, 0, c) for c in range(n_cols)],
+        input_cols={"a": [0]}, output_cols={"out": list(range(n_cols))}))
 
 
 def test_loop_table_refuses_what_the_kernel_cannot_take():
+    """The kernel's limits hold for the live state: a schedule of many
+    columns whose live set is narrow fits; one whose live set does not fit
+    12 bits, or shared memory beside the row stages, is refused."""
     fields = schedule_fields(ir.compile_op("fixed_add", 8))
-    wide = convert.compiled_from_numpy(dict(fields, num_cols=pb.MAX_LOOP_COLS + 1))
+    narrow = convert.compiled_from_numpy(dict(fields, num_cols=pb.MAX_LOOP_COLS + 1))
+    assert pb.pack_rows(narrow).state_cols < 20
     with pytest.raises(ValueError, match="12-bit"):
-        pb.pack_rows(wide)
-    # 2000 columns fit 12 bits, but not shared memory beside the row stages.
-    deep = convert.compiled_from_numpy(dict(fields, num_cols=2000))
+        pb.pack_rows(_outputs_only(pb.MAX_LOOP_COLS + 1))
+    # 2000 live columns fit 12 bits, but not shared memory.
     with pytest.raises(ValueError, match="shared memory"):
-        pb.pack_rows(deep)
-    fits = convert.compiled_from_numpy(dict(fields, num_cols=1700))
-    assert pb.pack_rows(fits).shape[0] == pb.ROW_CHUNK
+        pb.pack_rows(_outputs_only(2000))
+    fits = pb.pack_rows(_outputs_only(1700))
+    assert (fits.state_cols, fits.words) == (1700, 32)
+    assert fits.rows.shape[0] == 7 * pb.ROW_CHUNK
 
 
 def test_probe_versions_of_the_loop_kernel():
@@ -183,11 +361,9 @@ def test_probe_versions_of_the_loop_kernel():
     compiled = _port("int8_mac", "dram")
     one = probe.table_of(compiled, 1)
     assert pb.GATE_GROUP == 4
-    assert all(len(g) == 1 for _, g in _groups(_decode(one)))
-    planes = convert.planes_from_numpy(np.random.default_rng(7).integers(
-        0, 2**32, (len(compiled.input_slots), W), dtype=np.uint64).astype(np.uint32),
-        device="cpu")
-    assert torch.equal(_walk(one, compiled, planes), ir.interpret(compiled, planes))
+    assert all(len(g) == 1 for _, g in _groups(_decode(one.rows)))
+    planes = convert.planes_from_numpy(_planes(len(compiled.input_slots), 7), device="cpu")
+    assert torch.equal(_walk(one, planes), ir.interpret(compiled, planes))
 
 
 def test_table_format_matches_the_kernel_source():
@@ -203,3 +379,10 @@ def test_table_format_matches_the_kernel_source():
     assert const("GROUP_SHIFT") == pb.GROUP_SHIFT
     assert const("WPT") == pb.LOOP_WORDS_PER_THREAD
     assert re.search(r"COL_MASK = 0x(\w+)u", src).group(1).lower() == f"{MASK:x}"
+    # The launch takes the table's arrays in the order pim_bitserial binds.
+    launch = re.search(r'extern "C" int bitserial_loop_launch\((.*?)\)', src, re.S).group(1)
+    params = [p.split()[-1].lstrip("*") for p in launch.split(",")]
+    assert params == ["planes_in", "planes_out", "table", "stage_starts", "staged",
+                      "out_slots", "n_out", "n_rows", "state_cols", "W",
+                      "words_per_block", "stream"]
+    assert len(params) == 12

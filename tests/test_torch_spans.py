@@ -1,7 +1,7 @@
 """The port's span and counter registry (``repro_torch.core.spans``): nothing
 recorded while off, the span tree of one ``pim.compile`` call and of one
-``conv3x3`` layer, the rebuilds
-a rebound key records, the executors' launch counters and the compile
+``conv3x3`` layer, the rebuilds a rebound key records, a loop launch's
+live-state attributes, the executors' launch counters and the compile
 cache's counters read through their old names, and spans on the profiler's
 host clock."""
 
@@ -179,6 +179,28 @@ def test_a_rebound_key_records_its_rebuild():
     assert builds(a) == []  # the same schedule: kept
     assert builds(b) == ["segments"]
     assert builds(a) == ["segments"]
+
+
+@pytest.mark.parametrize("basis,attrs", [("memristive", {"state_cols": 127, "words": 416}),
+                                         ("dram", {"state_cols": 121, "words": 448})])
+def test_a_loop_launch_records_its_live_state(monkeypatch, basis, attrs):
+    """A loop-kernel ``exec.launch`` span carries the live state's width and
+    the words a block (the f32 MAC's 127 / 121 columns of 160 / 155).  The
+    CPU runs the plain version, which launches nothing, so the launch
+    wrapper runs here with the library and its launch stood in for."""
+    compiled = pim.compile(MAC, dtype=pim.f32).compiled(basis)
+    key = pim_bitserial.register_compiled(compiled)
+    monkeypatch.setattr(pim_bitserial, "_loop_lib", lambda: None)
+    monkeypatch.setattr(pim_bitserial, "launch_loop", lambda lib, table, planes, out: 0)
+    planes = torch.zeros((len(compiled.input_slots), 256), dtype=torch.int32)
+    pim_bitserial._loop_table(key, planes.device)  # built outside the recording
+    before = pim_bitserial.LAUNCHES["bitserial_loop"]
+    with spans.recording() as rec:
+        out = pim_bitserial._launch_loop(key, planes)
+    assert out.shape == (len(compiled.output_slots), 256)
+    assert [(s.name, s.attrs) for s in rec] == [("exec.launch", attrs)]
+    assert pim_bitserial.LAUNCHES["bitserial_loop"] == before + 1
+    spans.count("exec.launches.bitserial_loop", -1)
 
 
 def test_matmul_launches_read_their_counters():
