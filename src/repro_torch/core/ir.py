@@ -53,6 +53,7 @@ one ``register_backend`` call.  See DESIGN.md §4 and README.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 from typing import Any
 
@@ -734,13 +735,32 @@ class CompiledSchedule:
     def output_slots(self) -> list[int]:
         return [c for name in sorted(self.output_cols) for c in self.output_cols[name]]
 
-    def cycles(self, cycles_per_gate: int | None = None) -> int:
+    def cycles(self) -> int:
         """Command cycles under this schedule's basis (per-opcode weights:
-        AAP/TRA counts for dram, init+evaluate for memristive).  Passing an
-        explicit ``cycles_per_gate`` forces the legacy uniform costing."""
-        if cycles_per_gate is not None:
-            return self.num_gates * cycles_per_gate
+        AAP/TRA counts for dram, init+evaluate for memristive)."""
         return get_basis(self.basis).schedule_cycles(self.ops)
+
+    @functools.cached_property
+    def report(self) -> CostReport:
+        """The schedule's analytical :class:`CostReport`, computed at first
+        access (after ``compile_program`` has set ``meta``) and kept: every
+        backend's ``run`` returns this one object."""
+        return CostReport(
+            key=self.key,
+            gates=self.native_gates,
+            recorded_gates=self.recorded_gates,
+            schedule_len=self.num_gates,
+            cycles=self.cycles(),
+            num_cols=self.num_cols,
+            parallel_cycles=self.num_waves,
+            basis=self.basis,
+            maj_gates=self.maj_gates,
+            not_gates=self.not_gates,
+            peak_rows=self.peak_rows,
+            copy_aaps=int(self.meta.get("copy_aaps", 0)),
+            hbm_planes_in=len(self.input_slots),
+            hbm_planes_out=len(self.output_slots),
+        )
 
     def to_schedule(self) -> Schedule:
         """Legacy ``machine.Schedule`` view (same ops/column maps)."""
@@ -912,10 +932,11 @@ class Program:
             return self.out_names
         return tuple(f"out{j:02d}" for j in range(len(self.outputs)))
 
-    @property
+    @functools.cached_property
     def key(self) -> str:
         """Structural cache key: two traces of the same computation share
-        one compilation regardless of the function name they came from."""
+        one compilation regardless of the function name they came from.
+        Built once a program (the compile cache looks it up every call)."""
         ins = ",".join(map(str, self.in_widths))
         body = ";".join(
             f"const[{n.imm:#x}]->v{n.out}:{n.width}" if n.op == CONST_OP
@@ -1116,38 +1137,13 @@ class ExecutionResult:
 
 class Backend:
     """One executor: turns a CompiledSchedule (+ stacked input planes) into
-    output planes and/or an analytical cost report."""
+    output planes, returned beside the schedule's ``report``."""
 
     name = "base"
 
     def run(self, compiled: CompiledSchedule, planes: torch.Tensor | None = None,
             **opts: Any) -> ExecutionResult:
         raise NotImplementedError
-
-    def cost(self, compiled: CompiledSchedule,
-             cycles_per_gate: int | None = None) -> CostReport:
-        """Per-basis cost; pass ``cycles_per_gate`` to force legacy uniform
-        per-row costing (the retired clock-scaling convention)."""
-        return CostReport(
-            key=compiled.key,
-            gates=compiled.native_gates,
-            recorded_gates=compiled.recorded_gates,
-            schedule_len=compiled.num_gates,
-            cycles=compiled.cycles(cycles_per_gate),
-            num_cols=compiled.num_cols,
-            parallel_cycles=int(compiled.meta.get("num_waves", 0)),
-            cycles_per_gate=(
-                cycles_per_gate if cycles_per_gate is not None
-                else CYCLES_PER_GATE_MEMRISTIVE
-            ),
-            basis=compiled.basis,
-            maj_gates=compiled.maj_gates,
-            not_gates=compiled.not_gates,
-            peak_rows=compiled.peak_rows,
-            copy_aaps=int(compiled.meta.get("copy_aaps", 0)),
-            hbm_planes_in=len(compiled.input_slots),
-            hbm_planes_out=len(compiled.output_slots),
-        )
 
 
 def interpret(compiled: CompiledSchedule, planes: torch.Tensor) -> torch.Tensor:
@@ -1187,7 +1183,7 @@ class InterpreterBackend(Backend):
 
     def run(self, compiled, planes=None, **opts):
         assert planes is not None, "interpreter needs input planes"
-        return ExecutionResult(interpret(compiled, planes), self.cost(compiled))
+        return ExecutionResult(interpret(compiled, planes), compiled.report)
 
 
 class CostModelBackend(Backend):
@@ -1196,9 +1192,8 @@ class CostModelBackend(Backend):
 
     name = "cost"
 
-    def run(self, compiled, planes=None,
-            cycles_per_gate: int | None = None, **opts):
-        return ExecutionResult(None, self.cost(compiled, cycles_per_gate))
+    def run(self, compiled, planes=None, **opts):
+        return ExecutionResult(None, compiled.report)
 
 
 _BACKENDS: dict[str, Backend] = {}

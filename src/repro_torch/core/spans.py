@@ -26,10 +26,8 @@ span                     what it covers
 =======================  ==================================================
 ``pim.call``             the whole call (attrs ``dtype``, ``basis``, ``rows``)
 ``frontend.cast``        ``PimType.cast`` of one argument
-``pack.stack``           allocating the call's one buffer of every input
-                         plane (the planes' stack, filled by ``to_planes``)
 ``pack.to_planes``       ``PimType.to_planes`` of one argument, into its
-                         rows of that buffer
+                         rows of the call's one buffer of input planes
 ``frontend.compile_cache``  the compile-cache lookup
 ``ir.compile``           a compile on a cache miss
 ``exec.run_schedule``    the executor: registration, padding, dispatch

@@ -41,6 +41,7 @@ those of :mod:`repro_torch.core.spans`.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from pathlib import Path
 from typing import NamedTuple
@@ -340,18 +341,13 @@ def _loop_lib() -> ctypes.CDLL:
     with spans.span("exec.build", what="loop library"):
         _build.build(build_jobs())  # one nvcc round with the packing kernels
         lib = _build.load("bitserial_loop", LOOP_SOURCE.read_text())
-    bind_loop(lib)
-    lib.bitserial_error_string.argtypes = [ctypes.c_int]
-    lib.bitserial_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def bind_loop(lib: ctypes.CDLL) -> None:
-    """Declare ``bitserial_loop_launch``'s arguments on a loaded library."""
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bitserial_loop_launch.argtypes = [p, p, p, p, p, p, i, i, i,
                                           ctypes.c_longlong, i, p]
     lib.bitserial_loop_launch.restype = ctypes.c_int
+    lib.bitserial_error_string.argtypes = [ctypes.c_int]
+    lib.bitserial_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def launch_loop(lib: ctypes.CDLL, table: LoopTable, planes: torch.Tensor,
@@ -469,8 +465,8 @@ def unrolled_source(key: str) -> str:
 
 
 def _unrolled_lib(key: str) -> ctypes.CDLL:
-    lib = _UNROLLED_LIBS.get(key)
-    if lib is None:
+    built = _BUILT[key]
+    if built.unrolled_lib is None:
         with spans.span("exec.build", what="unrolled library"):
             lib = _build.load("bitserial_unrolled", unrolled_source(key))
         p = ctypes.c_void_p
@@ -479,8 +475,8 @@ def _unrolled_lib(key: str) -> ctypes.CDLL:
         lib.bitserial_segment_launch.restype = ctypes.c_int
         lib.bitserial_error_string.argtypes = [ctypes.c_int]
         lib.bitserial_error_string.restype = ctypes.c_char_p
-        _UNROLLED_LIBS[key] = lib
-    return lib
+        built.unrolled_lib = lib
+    return built.unrolled_lib
 
 
 def _launch_unrolled(key: str, planes: torch.Tensor) -> torch.Tensor:
@@ -511,23 +507,21 @@ def _launch_unrolled(key: str, planes: torch.Tensor) -> torch.Tensor:
 # Per-schedule caches and dispatch
 # ---------------------------------------------------------------------------
 
-# Registry of compiled schedules by key.
+@dataclasses.dataclass
+class _Built:
+    """What the executor built for one registered schedule, each on first
+    use: loop-kernel tables by device, the wave-chunked straight-line
+    segments and their library."""
+
+    tables: dict[torch.device, LoopTable] = dataclasses.field(default_factory=dict)
+    segments: list | None = None
+    unrolled_lib: ctypes.CDLL | None = None
+
+
+# Registry of compiled schedules by key, and what was built for each;
+# rebinding a key to another schedule replaces its record whole.
 _SCHEDULES: dict[str, ir.CompiledSchedule] = {}
-# Loop-kernel tables uploaded once per (key, device).
-_LOOP_TABLES: dict[str, dict[torch.device, LoopTable]] = {}
-# Wave-chunked straight-line segments and their built libraries.
-_SEGMENTS: dict[str, list] = {}
-_UNROLLED_LIBS: dict[str, ctypes.CDLL] = {}
-# Bumped when a key is rebound to different schedule content, which drops
-# every per-key artifact above.
-_GENERATIONS: dict[str, int] = {}
-
-
-def _invalidate(key: str) -> None:
-    _LOOP_TABLES.pop(key, None)
-    _SEGMENTS.pop(key, None)
-    _UNROLLED_LIBS.pop(key, None)
-    _GENERATIONS[key] = _GENERATIONS.get(key, 0) + 1
+_BUILT: dict[str, _Built] = {}
 
 
 def _check_columns(key: str, compiled: ir.CompiledSchedule) -> None:
@@ -543,41 +537,37 @@ def _check_columns(key: str, compiled: ir.CompiledSchedule) -> None:
 def _loop_table(key: str, device: torch.device) -> LoopTable:
     """The loop kernel's :class:`LoopTable` on ``device``, built once per key
     and device."""
-    per_device = _LOOP_TABLES.setdefault(key, {})
-    table = per_device.get(device)
+    tables = _BUILT[key].tables
+    table = tables.get(device)
     if table is None:
         with spans.span("exec.build", what="table"):
-            table = per_device[device] = pack_rows(_SCHEDULES[key]).to(device)
+            table = tables[device] = pack_rows(_SCHEDULES[key]).to(device)
     return table
 
 
 def _segment_cache(key: str) -> list:
-    segments = _SEGMENTS.get(key)
-    if segments is None:
+    built = _BUILT[key]
+    if built.segments is None:
         with spans.span("exec.build", what="segments"):
-            segments = _SEGMENTS[key] = _segments(_SCHEDULES[key])
-    return segments
+            built.segments = _segments(_SCHEDULES[key])
+    return built.segments
 
 
 def register_compiled(compiled: ir.CompiledSchedule, key: str | None = None) -> str:
     key = key or compiled.key
     if _SCHEDULES.get(key) is not compiled:
         _check_columns(key, compiled)
-        _invalidate(key)
-    _SCHEDULES[key] = compiled
+        _SCHEDULES[key] = compiled
+        _BUILT[key] = _Built()
     return key
 
 
 def register_schedule(key: str, schedule: Schedule | ir.CompiledSchedule) -> None:
     """Register a schedule under ``key``.  Accepts a ``CompiledSchedule`` or a
     legacy (column-allocated) ``machine.Schedule``, which is wrapped as-is."""
-    if isinstance(schedule, ir.CompiledSchedule):
-        register_compiled(schedule, key)
-        return
-    compiled = ir.CompiledSchedule.from_legacy(schedule, key=key)
-    _check_columns(key, compiled)
-    _invalidate(key)
-    _SCHEDULES[key] = compiled
+    if not isinstance(schedule, ir.CompiledSchedule):
+        schedule = ir.CompiledSchedule.from_legacy(schedule, key=key)
+    register_compiled(schedule, key)
 
 
 def build_jobs(keys=()) -> list[tuple[str, str]]:
@@ -650,7 +640,7 @@ class CudaBackend(ir.Backend):
         with spans.span("exec.run_schedule"):
             key = register_compiled(compiled)
             out = run_schedule(key, planes, mode=mode or self.mode)
-            return ir.ExecutionResult(out, self.cost(compiled))
+        return ir.ExecutionResult(out, compiled.report)
 
 
 class CudaUnrolledBackend(CudaBackend):

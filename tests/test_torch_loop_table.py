@@ -347,25 +347,6 @@ def test_loop_table_refuses_what_the_kernel_cannot_take():
     assert fits.rows.shape[0] == 7 * pb.ROW_CHUNK
 
 
-def test_probe_versions_of_the_loop_kernel():
-    """``benchmarks/torch_loop_probe.py`` swaps in an opcode dispatch for the
-    branch-free gate (one ``run_group``, numbered as the port's opcodes)
-    and packs groups of one gate, which still walk to the interpreter."""
-    from benchmarks import torch_loop_probe as probe
-
-    src = probe.switch_source()
-    assert src.count("void run_group(") == 1 and "switch ((r.x >> 12) & 7u)" in src
-    assert "maj3_xor(va[j]" not in src
-    assert (pb.OP_NOR, pb.OP_INIT0, pb.OP_INIT1, pb.OP_COPY, pb.OP_NOT,
-            pb.OP_MAJ3) == tuple(range(6)) and pb.OP_SHIFT == 12
-    compiled = _port("int8_mac", "dram")
-    one = probe.table_of(compiled, 1)
-    assert pb.GATE_GROUP == 4
-    assert all(len(g) == 1 for _, g in _groups(_decode(one.rows)))
-    planes = convert.planes_from_numpy(_planes(len(compiled.input_slots), 7), device="cpu")
-    assert torch.equal(_walk(one, planes), ir.interpret(compiled, planes))
-
-
 def test_table_format_matches_the_kernel_source():
     src = pb.LOOP_SOURCE.read_text()
 
