@@ -16,10 +16,13 @@ events beside its bound, and does the same for the packing kernels at
 ``PACK_ROWS`` rows (the benchmark's bulk call), f32 and int8, each beside
 its bytes bound and the plain path's time.  The same kernel-against-plain
 loop holds the loop kernel on the nine-tap program of ``repro_torch.pim.conv``
-(19 arguments; 191 live state columns on memristive, 185 on dram, so 288
+(19 arguments; 191 live state columns on memristive, 186 on dram, so 288
 words, 4.5 warps, a block; at least 256 words required) at VGG-16 D's
 smallest and largest calls (``CONV_ROWS``) on both bases, each loop case
-printing its live state and block and counting its launches; then the conv phase runs one input channel
+printing its live state, block and table groups and counting its launches;
+the f32 MAC's and the nine-tap row's groups, stage pads left out, must be
+at most ``GROUPS_SHARE`` of program order's (``PROGRAM_ORDER_GROUPS``);
+then the conv phase runs one input channel
 through ``conv3x3``, equal to ``vgg_reference.conv3x3_chain`` bit for bit,
 with its launches counted from zero (one loop kernel, 19 packs, one
 unpack); the kernels line carries the conv cases too.  The matmul phase drives the paper's Fig 5
@@ -240,6 +243,12 @@ DRYRUN_DIR = os.path.join(ROOT, "build", "dryrun_smoke")
 # last group's 8·14²·512 rows, the first group's 8·224²·64); then one input
 # channel of its first layer through ``conv3x3``: batch, side, Cout.
 CONV_ROWS = (802_816, 25_690_112)
+# The loop kernel's table groups, stage pads left out, that program order
+# gave (each hazard-free wave chunk cut at four gates), by program and basis;
+# the dataflow order must take at most GROUPS_SHARE of them.
+PROGRAM_ORDER_GROUPS = {"f32 MAC memristive": 6642, "f32 MAC dram": 4131,
+                        "nine-tap conv memristive": 59744, "nine-tap conv dram": 37007}
+GROUPS_SHARE = 0.56
 CONV_LAYER = (8, 224, 64)
 
 F32_SPECIALS = np.array(
@@ -1773,12 +1782,19 @@ def main() -> int:
         if mode == "loop":  # one block an SM: its live state fills the shared memory
             table = pim_bitserial._loop_table(key, planes.device)
             warps = table.words / pim_bitserial.LOOP_WORDS_PER_THREAD / 32
+            # Each row is a gate or a stage pad, a one-row group of its own.
+            real = table.groups - (table.rows.shape[0] - compiled.num_gates)
             geometry = {"state_cols": table.state_cols, "words": table.words,
-                        "warps_per_sm": warps}
+                        "warps_per_sm": warps, "groups": table.groups, "real_groups": real}
             block = (f", live state {table.state_cols} cols, {table.words} words a block "
-                     f"({warps:g} warps an SM)")
+                     f"({warps:g} warps an SM), {table.groups} groups ({real} without "
+                     f"stage pads, {compiled.num_gates / real:.2f} gates a group)")
             if label.startswith("nine-tap conv"):
                 require(table.words >= 256, f"{table.words} words a block on {label}")
+            program = PROGRAM_ORDER_GROUPS.get(label.split(",")[0])
+            if program:
+                require(real <= GROUPS_SHARE * program,
+                        f"{real} groups on {label}, program order's {program}")
         say(f"kernel {kernel} on {label}: {compiled.num_gates} gates, {compiled.num_cols} "
             f"cols{block}, {n_seg} launch(es)/call, W={words} words: equal to plain "
             f"(max_abs_err {err}); {ms:.4f} ms/call, bound {bms:.4f} ms ({by}), "
@@ -1855,7 +1871,7 @@ def main() -> int:
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             "case": r["label"], "state_cols": r["state_cols"], "words": r["words"],
-            **kernel_resources(loop_lib, loop_symbol),
+            "groups": r["groups"], **kernel_resources(loop_lib, loop_symbol),
         })
     pack_lib = _build.library_path(*pim_bitplanes.build_job())
     for r in pack_results:

@@ -32,8 +32,9 @@ span                     what it covers
 ``ir.compile``           a compile on a cache miss
 ``exec.run_schedule``    the executor: registration, padding, dispatch
 ``exec.launch``          the kernel launch calls; a loop-kernel launch has
-                         attrs ``state_cols`` (the live state's width) and
-                         ``words`` (words a block)
+                         attrs ``state_cols`` (the live state's width),
+                         ``words`` (words a block) and ``groups`` (the
+                         gate table's groups, stage pads included)
 ``exec.build``           a library build or load, a segment generation or a
                          gate-table upload, on a miss (attr ``what``)
 ``unpack.from_planes``   ``PimType.from_planes`` of one output

@@ -27,10 +27,12 @@
 //    16-byte cp.async, two stages, the next chunk in flight while the
 //    current one executes, and each group's rows load while the group
 //    before it runs;
-//  * rows come in hazard-free groups of up to GROUP gates (the straight-line
-//    kernel's wave chunks, in program order).  A group issues every operand
-//    load of all its gates, then computes, then stores: several shared loads
-//    in flight per warp instead of one;
+//  * rows come in groups of up to GROUP gates, each reading only values
+//    written by earlier groups (pim_bitserial.loop_groups list-schedules the
+//    gates by dataflow: 3.9 a group for the f32 MAC, not the 2 of program
+//    order's wave chunks).  A group issues every operand load of all its
+//    gates, then computes, then stores: several shared loads in flight per
+//    warp instead of one;
 //  * every opcode is MAJ3(a, b, c) ^ invert, an operand that the opcode does
 //    not read naming one of two constant columns (all zeros, all ones)
 //    kept after the state's own: no branch on the opcode and no predicated

@@ -13,15 +13,17 @@ Two kernels, written by hand for Hopper, port the two Pallas kernels of
 
 * ``loop`` — ``csrc/bitserial_loop.cu`` (replaces ``_kernel``): each thread
   owns ``LOOP_WORDS_PER_THREAD`` words of a crossbar state in shared memory
-  and walks a packed gate table (:func:`pack_rows`: 8 bytes a row, rows in
-  hazard-free groups of ``GATE_GROUP`` so each group reads all its operands
-  before it writes).  Any schedule, no per-schedule build.  The state is
-  the kernel's own, not the schedule's columns: :func:`live_state` gives
-  each value a column only while it is live, and inputs are staged, copied
-  in while the stage before their first reader runs, not all loaded
-  first.  One block fills an SM's shared memory, so that width sets the
-  warps an SM runs (:func:`words_per_block`): 4.5 for the nine-tap conv
-  row, whose 672 schedule columns, 608 of them inputs, gave one.
+  and walks a packed gate table (:func:`pack_rows`: 8 bytes a row, the
+  schedule's gates list-scheduled by dataflow into groups of up to
+  ``GATE_GROUP``, each reading only values written by earlier groups, so a
+  group reads all its operands before it writes).  Any schedule, no
+  per-schedule build.  The state is the kernel's own, not the schedule's
+  columns: :func:`live_state` gives each value a column only while it is
+  live, and inputs are staged, copied in while the stage before their
+  first reader runs, not all loaded first.  One block fills an SM's shared
+  memory, so that width sets the warps an SM runs
+  (:func:`words_per_block`): 4.5 for the nine-tap conv row, whose 672
+  schedule columns, 608 of them inputs, gave one.
 * ``unrolled`` — generated per schedule by ``bitserial_codegen`` (replaces
   ``_unrolled_segment_kernel``): straight-line code on fixed column
   variables, in hazard-free wave chunks, split into segments of at most
@@ -43,6 +45,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import heapq
 from pathlib import Path
 from typing import NamedTuple
 
@@ -91,6 +94,10 @@ INVERT_SHIFT = 15
 GROUP_SHIFT = 12
 HALF_SHIFT = 16
 MAX_LOOP_COLS = (1 << COL_BITS) - 2  # and the two constant columns
+# The gates the loop kernel's list scheduler fills a group from: the next
+# unscheduled ones in program order.  A window of 1024 finds 1 - 2 % fewer
+# groups but widens the live state (the dram f32 MAC's to 126 columns).
+SCHEDULE_WINDOW = 64
 
 LOOP_SOURCE = Path(__file__).with_name("csrc") / "bitserial_loop.cu"
 
@@ -145,28 +152,161 @@ def loop_operands(op: int, a: int, b: int, c: int, num_cols: int) -> tuple[int, 
     return zero, zero, zero, op == OP_INIT1
 
 
-def loop_groups(compiled: ir.CompiledSchedule) -> list[list[tuple[int, int, int, int, int]]]:
-    """The loop kernel's row order, in the schedule's columns: the rows in
-    program order, each hazard-free wave chunk cut into groups of at most
-    ``GATE_GROUP``.  A group never straddles a ``ROW_CHUNK`` stage: the
-    stage's tail, and the table's, is filled with one-row groups that write
-    zero into the zero column ``num_cols``.  A group read in full before it
-    is written computes what program order computes.  :func:`pack_rows`
-    then moves the rows onto the live state's columns (:func:`live_state`)."""
-    pad = [(OP_INIT0, 0, 0, 0, compiled.num_cols)]
-    groups: list[list[tuple[int, int, int, int, int]]] = []
+# By opcode: which of the (a, b, c) fields it reads; and, from
+# loop_operands over stand-ins, which of (a, b, c, zero, ones) the kernel
+# reads as each operand, and whether it inverts.
+_READS = np.array([[f in operand_slots(op) for f in range(3)] for op in range(8)])
+_OPERANDS = np.array([loop_operands(op, 0, 1, 2, 3)[:3] for op in range(8)])
+_INVERT = np.array([loop_operands(op, 0, 1, 2, 3)[3] for op in range(8)])
+
+
+class Dataflow(NamedTuple):
+    """A schedule's gates on values (:func:`dataflow`): input ``i`` is value
+    ``i``, gate ``g`` writes value ``n_in + g``, and -1 is the zero value."""
+
+    ops: np.ndarray  # [n_gates]: each gate's opcode
+    reads: np.ndarray  # [n_gates, 3]: the value each field reads, -1 if the opcode reads none
+    n_in: int
+    outputs: np.ndarray  # [n_out]: each output's final value
+
+
+def dataflow(compiled: ir.CompiledSchedule) -> Dataflow:
+    """Rename ``compiled``'s rows to values once, in program order: each
+    write is a new value, each read the value its column last took before
+    the row (an input's, or the zero value if the column was never written:
+    the schedule's scratch starts at zero), each output its column's final
+    value.  On values the rows may run in any order that keeps their true
+    dependences: the kernel's columns are allocated afresh
+    (:func:`live_state`)."""
+    ops = compiled.ops.astype(np.int64)
+    n, n_in = len(ops), len(compiled.input_slots)
+    before = np.full(compiled.num_cols, -1)  # each column's value before any write
+    before[compiled.input_slots] = np.arange(n_in)
+    keys = ops[:, 4] * (n + 1) + np.arange(n)
+    by_key = np.argsort(keys)
+    keys = keys[by_key]
+
+    def value_at(col, row):
+        """The value that column ``col`` holds when row ``row`` reads."""
+        pos = np.searchsorted(keys, col * (n + 1) + row) - 1
+        hit = pos >= 0
+        hit[hit] = keys[pos[hit]] // (n + 1) == col[hit]
+        value = before[col]
+        value[hit] = n_in + by_key[pos[hit]]
+        return value
+
+    reads = np.full((n, 3), -1)
+    gate, field = np.nonzero(_READS[ops[:, 0]])
+    reads[gate, field] = value_at(ops[gate, 1 + field], gate)
+    outputs = value_at(np.asarray(compiled.output_slots, dtype=np.int64), n)
+    return Dataflow(ops[:, 0], reads, n_in, outputs)
+
+
+def loop_groups(flow: Dataflow, cap: int | None = None,
+                window: int = SCHEDULE_WINDOW) -> list[list[int]]:
+    """The loop kernel's row order: ``flow``'s gates list-scheduled by
+    dataflow into groups of at most ``GATE_GROUP`` gate indices.  A gate is
+    ready once every value it reads was written in an earlier group, so a
+    group read in full before it is written computes what program order
+    computes.  Each group takes the earliest ready gates among the next
+    ``window`` unscheduled ones in program order; a window of one keeps
+    program order.  A group never straddles a ``ROW_CHUNK`` stage, and the
+    last stage is filled with one-row groups ``[-1]`` that write zero into
+    the zero column.
+
+    ``cap`` bounds the live state's width as :func:`live_state` counts it
+    (inputs returned unread aside): a gate is held back while its group
+    would take the state past ``cap``, or past the widest it has been if
+    that is more, and looked at again once a later gate joins the group,
+    since the group's reads free columns before its writes take them.  The
+    first unscheduled gate is always ready, and runs if nothing fits, so no
+    group is empty."""
+    n, n_in = len(flow.ops), flow.n_in
+    # Each value's reads not yet in a group.
+    left = np.bincount(flow.reads[flow.reads >= 0], minlength=n_in + n).tolist()
+    keep = np.zeros(n_in + n, bool)  # returned values never free
+    keep[flow.outputs[flow.outputs >= 0]] = True
+    keep = keep.tolist()
+    # Each gate's distinct values read, with their counts: reads[at[g]:at[g + 1]].
+    value, count = flow.reads.copy(), np.ones_like(flow.reads)
+    for i, j in ((0, 1), (0, 2), (1, 2)):
+        twice = (value[:, j] == value[:, i]) & (value[:, i] >= 0)
+        count[twice, i] += 1
+        value[twice, j] = -1
+    distinct = value >= 0
+    reads = list(zip(value[distinct].tolist(), count[distinct].tolist()))
+    at = np.append(0, np.cumsum(distinct.sum(axis=1))).tolist()
+    # Each gate's consumers, consumers[by[g]:by[g + 1]], and the gates it waits for.
+    consumer, field = np.nonzero(value >= n_in)
+    producer = value[consumer, field] - n_in
+    consumers = consumer[np.argsort(producer, kind="stable")].tolist()
+    by = np.append(0, np.cumsum(np.bincount(producer, minlength=n))).tolist()
+    pending = np.bincount(consumer, minlength=n).tolist()
+    unread = [True] * n_in
+    limit = n_in + n if cap is None else cap
+    # The live count now, and the most of the stage before and of this one
+    # so far: an input first read in stage s takes its column at the start
+    # of stage s - 1, so it raises both.
+    live = peak_before = peak = 0
+    groups: list[list[int]] = []
     used = 0  # rows in the current stage
-    rows = [tuple(int(x) for x in row) for row in compiled.ops]
-    for chunk in _wave_chunks(rows):
-        for i in range(0, len(chunk), GATE_GROUP):
-            group = chunk[i:i + GATE_GROUP]
-            if used + len(group) > ROW_CHUNK:
-                groups += [pad] * (ROW_CHUNK - used)
-                used = 0
-            groups.append(group)
-            used = (used + len(group)) % ROW_CHUNK
-    groups += [pad] * ((ROW_CHUNK - used) % ROW_CHUNK)
-    return groups
+    ready: list[int] = []  # heap of the window's ready gates
+    hi = 0  # the window: the unscheduled gates below hi, `window` of them
+    open_gates = scheduled = 0
+    while scheduled < n:
+        group: list[int] = []
+        held: list[int] = []
+        first = net = 0  # the group's inputs first read, and values taken less freed
+        room = min(GATE_GROUP, ROW_CHUNK - used)
+        while len(group) < room:
+            while open_gates < window and hi < n:
+                if not pending[hi]:
+                    heapq.heappush(ready, hi)
+                hi, open_gates = hi + 1, open_gates + 1
+            if not ready and (group or not held):
+                break
+            force = not ready  # nothing fits: the first held gate runs
+            g = held.pop(0) if force else heapq.heappop(ready)
+            k, f = 0, 1
+            operands = reads[at[g]:at[g + 1]]
+            for v, c in operands:
+                if v < n_in and unread[v]:
+                    k += 1
+                if left[v] == c and not keep[v]:
+                    f -= 1
+            if not force and (peak_before + first + k > limit or peak + first + k > limit
+                              or live + first + k + net + f > limit):
+                held.append(g)
+                continue
+            group.append(g)
+            open_gates -= 1
+            first, net = first + k, net + f
+            for v, c in operands:
+                left[v] -= c
+                if v < n_in:
+                    unread[v] = False
+            if held:  # reads completed: the held gates may fit now
+                for h in held:
+                    heapq.heappush(ready, h)
+                held = []
+        for g in held:
+            heapq.heappush(ready, g)
+        dead = sum(1 for g in group if not left[n_in + g] and not keep[n_in + g])
+        peak_before += first
+        peak = max(peak + first, live + first + net)
+        live += first + net - dead
+        limit = max(limit, peak_before, peak)
+        groups.append(group)
+        scheduled += len(group)
+        used = (used + len(group)) % ROW_CHUNK
+        if not used:
+            peak_before, peak = peak, live
+        for g in group:
+            for c in consumers[by[g]:by[g + 1]]:
+                pending[c] -= 1
+                if not pending[c] and c < hi:
+                    heapq.heappush(ready, c)
+    return groups + [[-1]] * ((ROW_CHUNK - used) % ROW_CHUNK)
 
 
 class LiveState(NamedTuple):
@@ -181,63 +321,34 @@ class LiveState(NamedTuple):
     out_slots: np.ndarray  # [n_out]: each output's state column
 
 
-# By opcode: which of the (a, b, c) fields it reads; and, from
-# loop_operands over stand-ins, which of (a, b, c, zero, ones) the kernel
-# reads as each operand, and whether it inverts.
-_READS = np.array([[f in operand_slots(op) for f in range(3)] for op in range(8)])
-_OPERANDS = np.array([loop_operands(op, 0, 1, 2, 3)[:3] for op in range(8)])
-_INVERT = np.array([loop_operands(op, 0, 1, 2, 3)[3] for op in range(8)])
+def live_state(flow: Dataflow, groups: list[list[int]]) -> LiveState:
+    """Allocate the loop kernel's state columns for the rows of ``groups``
+    (:func:`loop_groups`), each a gate of ``flow`` or -1, a pad.
 
-
-def live_state(compiled: ir.CompiledSchedule, rows: np.ndarray,
-               group: np.ndarray) -> LiveState:
-    """Allocate the loop kernel's state columns for ``rows`` ``[n_rows, 5]``,
-    the rows of :func:`loop_groups` in order, of group indices ``group``.
-
-    Each write, and each input, is one value.  A value holds a state column
-    from its start to its last read, or to the end if the schedule returns
-    it; a linear scan over those intervals reaches the peak number of values
-    live at once.  A group reads all its operands before it writes, so a
-    value last read in a group frees its column for the values the group
-    writes.  An input is staged in the stage of its first reader, and one
-    that is returned unread in stage ``n_rows / ROW_CHUNK`` after the last;
-    its copy lands while the stage before runs, so its column is held from
-    the start of that stage.  A read of a column never written and not an
-    input reads the zero column: the schedule's scratch starts at zero."""
-    n_rows, n_in, zero_value = len(rows), len(compiled.input_slots), -1
-    op, out = rows[:, 0], rows[:, 4]
-    before = np.full(compiled.num_cols, zero_value)  # each column's first value
-    before[compiled.input_slots] = np.arange(n_in)
-    wrote = np.flatnonzero(out != compiled.num_cols)  # value n_in + i: write i
-    keys = out[wrote].astype(np.int64) * (n_rows + 1) + wrote
-    by_key = np.argsort(keys, kind="stable")
-    keys = keys[by_key]
-
-    def value_at(col, row):
-        """The value that column ``col`` holds when row ``row`` reads."""
-        pos = np.searchsorted(keys, col.astype(np.int64) * (n_rows + 1) + row) - 1
-        hit = pos >= 0
-        hit[hit] = keys[pos[hit]] // (n_rows + 1) == col[hit]
-        value = before[col]
-        value[hit] = n_in + by_key[pos[hit]]
-        return value
-
-    reads = _READS[op]
+    Each value holds a state column from its start to its last read, or to
+    the end if the schedule returns it; a linear scan over those intervals
+    reaches the peak number of values live at once.  A group reads all its
+    operands before it writes, so a value last read in a group frees its
+    column for the values the group writes.  An input is staged in the
+    stage of its first reader, and one that is returned unread in stage
+    ``n_rows / ROW_CHUNK`` after the last; its copy lands while the stage
+    before runs, so its column is held from the start of that stage.  The
+    zero value, and a pad's write, is the zero column."""
+    gate = np.array([g for grp in groups for g in grp], dtype=np.int64).reshape(-1)
+    group = np.repeat(np.arange(len(groups)), [len(g) for g in groups])
+    n_rows, n_in, zero_value = len(gate), flow.n_in, -1
+    n_values = n_in + len(flow.ops)
+    wrote = np.flatnonzero(gate >= 0)  # row wrote[i] writes value n_in + gate[wrote[i]]
     operands = np.full((n_rows, 3), zero_value)
-    for f in range(3):
-        r = np.flatnonzero(reads[:, f])
-        operands[r, f] = value_at(rows[r, 1 + f], r)
-    n_values = n_in + len(wrote)
-    read_row = np.broadcast_to(np.arange(n_rows)[:, None], reads.shape)[reads]
-    read_value = operands[reads]
-    live = read_value != zero_value
-    read_row, read_value = read_row[live], read_value[live]
+    operands[wrote] = flow.reads[gate[wrote]]
+    read_row, field = np.nonzero(operands != zero_value)
+    read_value = operands[read_row, field]
     last = np.full(n_values, -1)
     np.maximum.at(last, read_value, group[read_row])
     first = np.full(n_in, n_rows)  # first reader's row
     inputs = read_value < n_in
     np.minimum.at(first, read_value[inputs], read_row[inputs])
-    final = value_at(np.asarray(compiled.output_slots, dtype=np.int64), n_rows)
+    final = flow.outputs
     returned = np.zeros(n_values, bool)
     returned[final[final != zero_value]] = True
 
@@ -250,7 +361,7 @@ def live_state(compiled: ir.CompiledSchedule, rows: np.ndarray,
     first_group = np.append(group[::ROW_CHUNK], 0)  # of each stage; 0 with no rows
     take_in = 4 * first_group[np.maximum(stage - 1, 0)]
     take_gate = 4 * group[wrote] + 3
-    values = np.concatenate([staged_in, np.arange(n_in, n_values)])
+    values = np.concatenate([staged_in, n_in + gate[wrote]])
     take = np.concatenate([take_in, take_gate])
     free = np.where(last[values] >= 0, 4 * last[values] + 2, take + 1)
     freed = ~returned[values]
@@ -269,7 +380,7 @@ def live_state(compiled: ir.CompiledSchedule, rows: np.ndarray,
             col[v], width = width, width + 1
     col = np.array(col + [width], dtype=np.int64)  # [-1], the zero value: the zero column
     out_value = np.full(n_rows, zero_value)
-    out_value[wrote] = np.arange(n_in, n_values)
+    out_value[wrote] = n_in + gate[wrote]
     return LiveState(col[operands], col[out_value], width,
                      np.stack([stage, staged_in, col[staged_in]], axis=1),
                      col[final])
@@ -288,6 +399,7 @@ class LoopTable(NamedTuple):
     out_slots: torch.Tensor  # int32 [n_out]: each output's state column
     state_cols: int  # the live state's width, beside the two constant columns
     words: int  # words a block: words_per_block(state_cols)
+    groups: int  # the table's groups, the stage pads' included
 
     def to(self, device: torch.device) -> LoopTable:
         return self._replace(**{f: getattr(self, f).to(device).contiguous()
@@ -298,36 +410,53 @@ def pack_rows(compiled: ir.CompiledSchedule) -> LoopTable:
     """The loop kernel's table: the rows of :func:`loop_groups` on the
     columns of :func:`live_state`, with the operands of
     :func:`loop_operands`, packed into 8 bytes each, and the staging lists
-    and output columns of that state.  Raises ``ValueError`` if the live
-    state's columns do not fit 12 bits or the state does not fit shared
-    memory."""
-    groups = loop_groups(compiled)
-    rows = np.array([row for g in groups for row in g], dtype=np.int64).reshape(-1, 5)
-    group = np.repeat(np.arange(len(groups)), [len(g) for g in groups])
-    state = live_state(compiled, rows, group)
+    and output columns of that state.
+
+    The rows are list-scheduled by dataflow under a cap on the live state:
+    the widest that keeps program order's words a block, and no wider than
+    the columns the schedule names.  Should a window of
+    ``SCHEDULE_WINDOW`` gates pass the cap all the same, a window a quarter
+    as wide is tried, then one a sixteenth, then program order is kept, so
+    the table never costs words a block.  Raises ``ValueError`` if program
+    order's live state does not fit 12-bit columns or shared memory."""
+    flow = dataflow(compiled)
+    groups = loop_groups(flow, window=1)
+    state = live_state(flow, groups)
+    if state.state_cols > MAX_LOOP_COLS:
+        raise ValueError(f"a {state.state_cols}-column live state and two constant "
+                         f"columns do not fit the loop kernel's {COL_BITS}-bit column indices")
+    words = words_per_block(state.state_cols)
+    named = 1 + max(compiled.ops[:, 1:].max(initial=-1), *compiled.input_slots,
+                    *compiled.output_slots, -1)
+    cap = min((SMEM_LIMIT_BYTES - 2 * ROW_CHUNK * ROW_BYTES) // (4 * words) - 2,
+              MAX_LOOP_COLS, max(named, state.state_cols))
+    for window in (SCHEDULE_WINDOW, SCHEDULE_WINDOW // 4, SCHEDULE_WINDOW // 16):
+        scheduled = loop_groups(flow, cap, window)
+        by_dataflow = live_state(flow, scheduled)
+        if by_dataflow.state_cols <= cap:
+            groups, state = scheduled, by_dataflow
+            break
     n = state.state_cols
-    if n > MAX_LOOP_COLS:
-        raise ValueError(f"a {n}-column live state and two constant columns do not "
-                         f"fit the loop kernel's {COL_BITS}-bit column indices")
-    words = words_per_block(n)
-    op = rows[:, 0]
-    constants = np.broadcast_to(np.array([n, n + 1]), (len(rows), 2))
+    gate = np.array([g for grp in groups for g in grp], dtype=np.int64).reshape(-1)
+    op = np.where(gate >= 0, flow.ops[gate], OP_INIT0)
+    constants = np.broadcast_to(np.array([n, n + 1]), (len(gate), 2))
     choices = np.concatenate([state.operands, constants], axis=1)
     a, b, c = np.take_along_axis(choices, _OPERANDS[op], axis=1).T
     invert = _INVERT[op]
-    starts = np.flatnonzero(np.diff(group, prepend=-1))
-    size = np.zeros(len(rows), dtype=np.int64)
-    size[starts] = np.diff(starts, append=len(rows)) - 1
+    size = np.zeros(len(gate), dtype=np.int64)
+    sizes = np.array([len(g) for g in groups], dtype=np.int64)
+    size[np.cumsum(sizes) - sizes] = sizes - 1
     table = np.stack([a | op << OP_SHIFT | invert << INVERT_SHIFT | b << HALF_SHIFT,
                       c | size << GROUP_SHIFT | state.out << HALF_SHIFT], axis=1)
     stage, staged = state.staged[:, 0], state.staged[:, 1:]
     order = np.argsort(stage, kind="stable")
-    stage_starts = np.searchsorted(stage[order], np.arange(len(rows) // ROW_CHUNK + 2))
+    stage_starts = np.searchsorted(stage[order], np.arange(len(gate) // ROW_CHUNK + 2))
     return LoopTable(
         torch.from_numpy(table.astype(np.uint32).view(np.int32)),
         torch.from_numpy(stage_starts.astype(np.int32)),
         torch.from_numpy(staged[order].astype(np.int32)),
-        torch.from_numpy(state.out_slots.astype(np.int32)), n, words)
+        torch.from_numpy(state.out_slots.astype(np.int32)), n, words_per_block(n),
+        len(groups))
 
 
 def loop_plain(compiled: ir.CompiledSchedule, planes: torch.Tensor) -> torch.Tensor:
@@ -375,7 +504,8 @@ def _launch_loop(key: str, planes: torch.Tensor) -> torch.Tensor:
                       device=planes.device)
     if planes.shape[1] == 0:
         return out
-    with spans.span("exec.launch", state_cols=table.state_cols, words=table.words):
+    with spans.span("exec.launch", state_cols=table.state_cols, words=table.words,
+                    groups=table.groups):
         err = launch_loop(lib, table, planes, out)
     _check(lib, err, f"bitserial_loop launch for {key!r}")
     spans.count("exec.launches.bitserial_loop")

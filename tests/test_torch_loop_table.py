@@ -1,15 +1,18 @@
 """The loop kernel's host-side table on the CPU: the packed rows, read
 through the executor's live-state columns, are the compiled schedule's rows
-on the same values; a plain PyTorch walk of the table in the kernel's order
-(each hazard-free group read in full before any of it is written, each
-stage's inputs written when their copy is issued, at the start of the stage
+on the same values, list-scheduled by dataflow into fewer groups than
+program order gives; a plain PyTorch walk of the table in the kernel's
+order (each group read in full before any of it is written, each stage's
+inputs written when their copy is issued, at the start of the stage
 before) equals the port's ``ir.interpret`` and the JAX reference
 ``interpreter`` word for word; staged inputs land in columns no row touches
-meanwhile; the live state is no wider than the schedule and its width is
-pinned for the f32 MAC and the nine-tap conv row; and schedules whose live
-state the kernel cannot take are refused.  The table format is also held
-against the constants of ``csrc/bitserial_loop.cu``."""
+meanwhile; the live state is no wider than the schedule, costs no words a
+block against program order, and its width and group count are pinned for
+the f32 MAC and the nine-tap conv row; and schedules whose live state the
+kernel cannot take are refused.  The table format is also held against the
+constants of ``csrc/bitserial_loop.cu``."""
 
+import collections
 import dataclasses
 import functools
 import re
@@ -141,37 +144,68 @@ def _walk(table: pb.LoopTable, planes: torch.Tensor) -> torch.Tensor:
     return torch.stack(_run(table, state, planes, gate))
 
 
-def _values(table: pb.LoopTable, n_in: int):
+class _Labels(dict):
+    """Interned value labels: an input ``("in", i)``, the constants
+    ``("zero",)`` and ``("ones",)``, and a gate's write ``(op, operand
+    labels)``, the expression it computes, each numbered once."""
+
+    def __missing__(self, key):
+        self[key] = len(self)
+        return self[key]
+
+
+def _values(table: pb.LoopTable, n_in: int, labels: _Labels):
     """The table's rows as values: per real row (one that does not pad),
-    ``(op, operand values)`` with each write a new value ``("w", k)`` and
-    input ``i`` the value ``("in", i)``; then the outputs' values.  A read of
-    a column never written is ``None``."""
+    ``(op, operand labels)``; then the outputs' labels.  A read of a column
+    never written reads ``None``."""
     zero = table.state_cols
-    state = [None] * zero + [("zero",), ("ones",)]
+    state = [None] * zero + [labels["zero",], labels["ones",]]
     real = []
 
     def gate(row, *operands):
         op, o = row[0], row[4]
         if o == zero:  # padding: writes zero into the zero column
             assert row[:4] + row[5:6] == (OP_INIT0, zero, zero, zero, 0)
-            return ("zero",)
+            return state[zero]
         real.append((op, tuple(operands[f] for f in operand_slots(op))))
-        return ("w", len(real) - 1)
-    outs = _run(table, state, [("in", i) for i in range(n_in)], gate)
+        return labels[real[-1]]
+    outs = _run(table, state, [labels["in", i] for i in range(n_in)], gate)
     return real, outs
 
 
-def _schedule_values(compiled):
+def _schedule_values(compiled, labels: _Labels):
     """The same for the schedule's rows in program order: every column but
     the inputs starts as the zero value."""
-    state = [("zero",)] * compiled.num_cols
+    state = [labels["zero",]] * compiled.num_cols
     for i, slot in enumerate(compiled.input_slots):
-        state[slot] = ("in", i)
+        state[slot] = labels["in", i]
     real = []
     for op, *fields, o in compiled.ops.tolist():
         real.append((op, tuple(state[fields[f]] for f in operand_slots(op))))
-        state[o] = ("w", len(real) - 1)
+        state[o] = labels[real[-1]]
     return real, [state[s] for s in compiled.output_slots]
+
+
+def _program_order(compiled) -> list[list[int]]:
+    """The table's groups in program order, as gate indices: each
+    hazard-free wave chunk of the schedule cut into groups of at most
+    ``GATE_GROUP``, and a stage's tail padded (``[-1]``) where a group would
+    straddle it."""
+    groups, used, start = [], 0, 0
+    for chunk in pb._wave_chunks([tuple(int(x) for x in r) for r in compiled.ops]):
+        for i in range(0, len(chunk), pb.GATE_GROUP):
+            group = list(range(start + i, start + min(i + pb.GATE_GROUP, len(chunk))))
+            if used + len(group) > pb.ROW_CHUNK:
+                groups += [[-1]] * (pb.ROW_CHUNK - used)
+                used = 0
+            groups.append(group)
+            used = (used + len(group)) % pb.ROW_CHUNK
+        start += len(chunk)
+    return groups + [[-1]] * ((pb.ROW_CHUNK - used) % pb.ROW_CHUNK)
+
+
+def _real_groups(groups) -> int:
+    return sum(1 for g in groups if g != [-1])
 
 
 @pytest.mark.parametrize("name,basis", CASES + NINE_TAP_CASES)
@@ -185,30 +219,27 @@ def test_packed_rows_unpack_to_the_schedule(name, basis):
         # The kernel's operands and inversion are those of loop_operands.
         fields = [v if f in operand_slots(op) else 0 for f, v in enumerate((a, b, c))]
         assert pb.loop_operands(op, *fields, zero) == (a, b, c, bool(invert))
-    # Read through the live state, the rows are the schedule's, in program
-    # order, on the same values, and so are the outputs.
-    assert _values(table, len(compiled.input_slots)) == _schedule_values(compiled)
+    # Read through the live state, each group reading all its operands
+    # before it writes, the real rows are a permutation of the schedule's
+    # rows on the same values, and the outputs are the same values: so each
+    # group reads only values written in earlier groups.
+    labels = _Labels()
+    real, outs = _values(table, len(compiled.input_slots), labels)
+    want, want_outs = _schedule_values(compiled, labels)
+    assert len(real) == len(want) and collections.Counter(real) == collections.Counter(want)
+    assert outs == want_outs
     groups = _groups(rows)
-    assert sum(len(g) for _, g in groups) == len(rows)
+    assert sum(len(g) for _, g in groups) == len(rows) and len(groups) == table.groups
     for start, group in groups:
         assert 1 <= len(group) <= pb.GATE_GROUP
         assert start // pb.ROW_CHUNK == (start + len(group) - 1) // pb.ROW_CHUNK
         assert all(r[6] == 0 for r in group[1:])
         outs = [r[4] for r in group if r[4] != zero]
         assert len(set(outs)) == len(outs)  # no column written twice in a group
-    # Program order: the real rows' groups follow the wave chunks, cut at
-    # GATE_GROUP, so no more groups than that; in the schedule's columns a
-    # group is hazard-free (no row reads or rewrites a column written
-    # earlier in it), which makes its read-then-write order program order.
-    chunks = pb._wave_chunks([tuple(int(x) for x in r) for r in compiled.ops])
-    n_real_groups = sum(1 for _, g in groups if g[0][4] != zero)
-    assert n_real_groups == sum(-(-len(c) // pb.GATE_GROUP) for c in chunks)
-    for group in pb.loop_groups(compiled):
-        written = set()
-        for op, a, b, c, o in group:
-            assert not ({(a, b, c)[f] for f in operand_slots(op)} & written)
-            assert o not in written or o == compiled.num_cols
-            written.add(o)
+    # No more groups than program order's (pads aside, and with them).
+    program = _program_order(compiled)
+    n_real = sum(1 for _, g in groups if g[0][4] != zero)
+    assert n_real <= _real_groups(program) and table.groups <= len(program)
 
 
 @pytest.mark.parametrize("name,basis", CASES + NINE_TAP_CASES)
@@ -226,12 +257,14 @@ def test_table_walk_matches_interpreters(name, basis):
 def _first_readers(compiled, table) -> dict[int, int]:
     """Each input's first reader, by table row."""
     first = {}
-    real, _ = _values(table, len(compiled.input_slots))
+    labels = _Labels()
+    inputs = {labels["in", i]: i for i in range(len(compiled.input_slots))}
+    real, _ = _values(table, len(compiled.input_slots), labels)
     rows = [r for r, row in enumerate(_decode(table.rows)) if row[4] != table.state_cols]
     for r, (_, operands) in zip(rows, real):
         for v in operands:
-            if v[0] == "in":
-                first.setdefault(v[1], r)
+            if v in inputs:
+                first.setdefault(inputs[v], r)
     return first
 
 
@@ -246,8 +279,10 @@ def test_staged_inputs_land_in_idle_columns(name, basis):
     stages = _stage_lists(table)
     staged = {i: (s, col) for s, pairs in enumerate(stages) for i, col in pairs}
     assert len(staged) == sum(len(p) for p in stages)  # each input once
-    _, outs = _schedule_values(compiled)
-    returned = {v[1] for v in outs if v[0] == "in"}
+    labels = _Labels()
+    inputs = {labels["in", i]: i for i in range(len(compiled.input_slots))}
+    _, outs = _schedule_values(compiled, labels)
+    returned = {inputs[v] for v in outs if v in inputs}
     assert set(staged) == set(first) | returned
     rows = _decode(table.rows)
     group_start = {r: start for start, g in _groups(rows) for r in range(start, start + len(g))}
@@ -272,19 +307,38 @@ def test_live_state_is_no_wider_than_the_schedule(op, nbits, basis):
     assert table.words == pb.words_per_block(table.state_cols)
 
 
-# (state_cols, words a block) by program and basis.  Tighter by one or two
-# columns than a count by rows (192 / 187 / 128 / 123), since a group reads
-# all its operands before it writes: a value last read in a group gives its
-# column to one the group writes.
-PINNED = {("nine_tap", "memristive"): (191, 288), ("nine_tap", "dram"): (185, 288),
-          ("f32_mac", "memristive"): (127, 416), ("f32_mac", "dram"): (121, 448)}
+@pytest.mark.parametrize("op,nbits", OP_CASES)
+@pytest.mark.parametrize("basis", BASES)
+def test_dataflow_order_never_costs_words(op, nbits, basis):
+    """Against program order's table on the same schedule, the dataflow
+    order gives no fewer words a block and no more groups."""
+    compiled = ir.compile_op(op, nbits, basis=basis)
+    table = pb.pack_rows(compiled)
+    program = _program_order(compiled)
+    width = pb.live_state(pb.dataflow(compiled), program).state_cols
+    assert table.words >= pb.words_per_block(width)
+    assert table.groups <= len(program)
+
+
+# (state_cols, words a block, groups with the stage pads) by program and
+# basis.  Program order gave 127 / 121 / 191 / 185 columns at the same
+# words a block, and 6642 / 4131 / 59744 / 37007 groups without the pads.
+PINNED = {("nine_tap", "memristive"): (191, 288, 30297),
+          ("nine_tap", "dram"): (186, 288, 20478),
+          ("f32_mac", "memristive"): (127, 416, 3445),
+          ("f32_mac", "dram"): (122, 448, 2262)}
+PROGRAM_ORDER_GROUPS = {("nine_tap", "memristive"): 59744, ("nine_tap", "dram"): 37007,
+                        ("f32_mac", "memristive"): 6642, ("f32_mac", "dram"): 4131}
 
 
 @pytest.mark.parametrize("name,basis", PINNED)
 def test_live_state_widths_are_pinned(name, basis):
-    table = _table(name, basis)
-    assert (table.state_cols, table.words) == PINNED[name, basis]
-    assert table.state_cols <= _port(name, basis).num_cols
+    table, compiled = _table(name, basis), _port(name, basis)
+    assert (table.state_cols, table.words, table.groups) == PINNED[name, basis]
+    assert table.state_cols <= compiled.num_cols
+    assert _real_groups(_program_order(compiled)) == PROGRAM_ORDER_GROUPS[name, basis]
+    n_real = sum(1 for _, g in _groups(_decode(table.rows)) if g[0][4] != table.state_cols)
+    assert n_real <= 0.56 * PROGRAM_ORDER_GROUPS[name, basis]
 
 
 @pytest.mark.parametrize("n_gates", [0, 3])

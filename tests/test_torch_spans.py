@@ -180,11 +180,14 @@ def test_a_rebound_key_records_its_rebuild():
     assert builds(a) == ["segments"]
 
 
-@pytest.mark.parametrize("basis,attrs", [("memristive", {"state_cols": 127, "words": 416}),
-                                         ("dram", {"state_cols": 121, "words": 448})])
+@pytest.mark.parametrize("basis,attrs", [
+    ("memristive", {"state_cols": 127, "words": 416, "groups": 3445}),
+    ("dram", {"state_cols": 122, "words": 448, "groups": 2262})])
 def test_a_loop_launch_records_its_live_state(monkeypatch, basis, attrs):
-    """A loop-kernel ``exec.launch`` span carries the live state's width and
-    the words a block (the f32 MAC's 127 / 121 columns of 160 / 155).  The
+    """A loop-kernel ``exec.launch`` span carries the live state's width,
+    the words a block and the table's groups (the f32 MAC's 127 / 122
+    columns of 160 / 155, its 12 968 / 8 697 gates in 3 445 / 2 262
+    groups).  The
     CPU runs the plain version, which launches nothing, so the launch
     wrapper runs here with the library and its launch stood in for."""
     compiled = pim.compile(MAC, dtype=pim.f32).compiled(basis)
@@ -198,6 +201,7 @@ def test_a_loop_launch_records_its_live_state(monkeypatch, basis, attrs):
         out = pim_bitserial._launch_loop(key, planes)
     assert out.shape == (len(compiled.output_slots), 256)
     assert [(s.name, s.attrs) for s in rec] == [("exec.launch", attrs)]
+    assert attrs["groups"] == pim_bitserial._loop_table(key, planes.device).groups
     assert pim_bitserial.LAUNCHES["bitserial_loop"] == before + 1
     spans.count("exec.launches.bitserial_loop", -1)
 
